@@ -1,0 +1,226 @@
+"""Batched layered min-sum decoding in plain PyTorch (QC codes).
+
+The port's counterpart of ``ldpcgputegra_tpu/ops/layered.py``, and the
+plain version of the CUDA kernel in ``kernels/layered.py``: the CPU tests
+run it, and ``chip_smoke.py`` holds the kernel against it on the card.
+
+* The APP array is node-major ``[N, B]`` int8; codewords ride the last
+  axis.
+* Each QC block-row is one step over all of its Z checks at once.  Checks
+  of a block-row touch pairwise-disjoint VNs, so that is bit-identical to
+  the reference's sequential check loop.
+* Edge j of check z reads VN ``cols[j]*Z + (shifts[j] + z) % Z``.  The
+  JAX path writes that as ``_roll(x, s) = concat(x[s:], x[:s])``; here it
+  is an explicit index tensor (``torch.roll`` has the opposite sign), and
+  the writeback is an index assignment through the same tensor.  The APP
+  array is updated in place, one block-row at a time.
+* Early termination freezes each converged codeword: its APP and messages
+  stop changing, so its output is its hard decision at the end of the
+  first iteration whose on-the-fly parity is all zero.  The loop stops
+  once every codeword has converged (one host read of a flag per
+  iteration; this version is not on the card's main path).
+
+Arithmetic is int16 on int8-stored state.  Saturation defaults to the
+reference's SAT_VAR=127 / SAT_MSG=31 (``constantes_sse.h:43-49``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..codes.code import LdpcCode
+from ..codes.schedule import build_layers
+
+__all__ = ["LayeredSpec", "make_layered_decoder", "SAT_VAR", "SAT_MSG",
+           "unsupported_reason"]
+
+SAT_VAR = 127
+SAT_MSG = 31
+
+_CT = torch.int16  # compute dtype
+_ST = torch.int8  # storage dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class LayeredSpec:
+    """Static decode configuration; same fields and validation as the JAX
+    package's ``LayeredSpec``."""
+
+    algo: str = "OMS"  # MS | OMS | NMS | 2NMS
+    iters: int = 10
+    offset: int = 1
+    early_term: bool = False
+    minclamp: str = "pre"  # 'pre' = x86 oracle, 'post' = GPU kernels
+    schedule: str = "auto"  # reference | colored | auto
+    # NMS normalization factors in 1/32 units; nms_f scales min1 (and min2
+    # for plain NMS), nms_f2 scales min2 in 2NMS
+    nms_f: int = 24
+    nms_f2: int = 28
+    sat_var: int = SAT_VAR
+    sat_msg: int = SAT_MSG
+
+    def __post_init__(self) -> None:
+        # APP and messages are stored as int8 on every path
+        if not (0 < self.sat_var <= 127):
+            raise ValueError(
+                f"sat_var={self.sat_var}: accelerated paths store APP as "
+                "int8, so var quantizer width is limited to 8 bits "
+                "(sat_var <= 127)"
+            )
+        if not (0 < self.sat_msg <= 127):
+            raise ValueError(
+                f"sat_msg={self.sat_msg}: accelerated paths store messages "
+                "as int8, so msg quantizer width is limited to 8 bits "
+                "(sat_msg <= 127)"
+            )
+        if not (0 < self.nms_f <= 32 and 0 < self.nms_f2 <= 32):
+            raise ValueError(
+                f"nms_f={self.nms_f}, nms_f2={self.nms_f2}: NMS factors "
+                "are 1/32 units in (0, 32] (1.0 max, like the reference's "
+                "DIV32 fixed path)"
+            )
+
+
+def _f_consts(min1, min2, spec: LayeredSpec):
+    """Message magnitudes (f1 for the min edge, f2 for the rest), the
+    integer-exact forms of CUDA_{MS,OMS,NMS,2NMS}_SIMD.cu."""
+    if spec.algo == "MS":
+        return min2.clamp(max=spec.sat_msg), min1.clamp(max=spec.sat_msg)
+    if spec.algo == "OMS":
+        return ((min2 - spec.offset).clamp(0, spec.sat_msg),
+                (min1 - spec.offset).clamp(0, spec.sat_msg))
+    if spec.algo == "NMS":
+        return (min2 * spec.nms_f) >> 5, (min1 * spec.nms_f) >> 5
+    if spec.algo == "2NMS":
+        return (min2 * spec.nms_f2) >> 5, (min1 * spec.nms_f) >> 5
+    raise ValueError(f"unknown algo {spec.algo!r}")
+
+
+def _cn_update(c: torch.Tensor, spec: LayeredSpec):
+    """Check-node core on [deg, Z, B] int16 contributions.
+
+    Returns (new messages [deg, Z, B] int16, parity [Z, B] int16); parity
+    is the XOR of the contribution signs, 0 when the check is satisfied.
+    """
+    sm = spec.sat_msg
+    a = c.clamp(-sm, sm).abs() if spec.minclamp == "pre" else c.abs()
+    s = (c > 0).to(_CT)
+    min1 = a[0]
+    min2 = torch.full_like(min1, spec.sat_var + 1)
+    for j in range(1, c.shape[0]):
+        # running two-min, order-identical to CUDA_MS_SIMD.cu:168-170
+        min2 = torch.minimum(min2, torch.maximum(a[j], min1))
+        min1 = torch.minimum(min1, a[j])
+    parity = s.sum(0, dtype=_CT) & 1
+    f1, f2 = _f_consts(min1, min2, spec)
+    mag = torch.where(a == min1, f1, f2)
+    m = torch.where((parity ^ s) == 1, mag, -mag)
+    if spec.minclamp == "pre":
+        m = m.clamp(-sm, sm)
+    return m, parity
+
+
+def _layer_step_qc(V, msg, idx, spec: LayeredSpec, active=None):
+    """One QC block-row, in place on V [N, B] int8.
+
+    ``idx`` [deg, Z] holds the VN of edge j of check z; ``msg`` is the
+    layer's [deg, Z, B] int8 messages.  ``active`` ([B] bool, early
+    termination) keeps converged codewords unchanged.  Returns the new
+    messages and the [Z, B] parity.
+    """
+    sv = spec.sat_var
+    rolled = V[idx]  # [deg, Z, B]
+    c = (rolled.to(_CT) - msg.to(_CT)).clamp(-sv, sv)
+    new_msgs, parity = _cn_update(c, spec)
+    v_new = (c + new_msgs).clamp(-sv, sv).to(_ST)
+    m_new = new_msgs.to(_ST)
+    if active is not None:
+        v_new = torch.where(active, v_new, rolled)
+        m_new = torch.where(active, m_new, msg)
+    V[idx.reshape(-1)] = v_new.reshape(-1, V.shape[1])
+    return m_new, parity
+
+
+def unsupported_reason(code: LdpcCode, spec: LayeredSpec):
+    """Why the port's layered decoders cannot take this code yet, naming
+    the ROADMAP item; None when they can."""
+    if spec.schedule == "flooding":
+        return "the flooding schedule is not ported yet (ROADMAP queue 1 item 12)"
+    if spec.schedule not in ("auto", "reference", "colored"):
+        return f"unknown schedule {spec.schedule!r}"
+    layers = build_layers(code, spec.schedule)
+    if code.Z is None or any(lay.qc is None for lay in layers):
+        return (f"{code.name}: non-QC layers (gather path) are not ported yet "
+                "(ROADMAP queue 1 item 10)")
+    if code.col_perm is not None or any(
+        lay.qc.mask_edge is not None or lay.qc.commit_rows is not None
+        for lay in layers
+    ):
+        return (f"{code.name}: col_perm views, deficient circulants and "
+                "sub-pass layers are not ported yet (ROADMAP queue 2 item 1 "
+                "step 4)")
+    return None
+
+
+def make_layered_decoder(
+    code: LdpcCode,
+    spec: LayeredSpec = LayeredSpec(),
+    device="cpu",
+):
+    """Build ``decode(llr[B, N] int8) -> (bits[B, N] uint8, iters_used)``
+    running on ``device``; ``iters_used`` is a 0-d int32 tensor."""
+    why = unsupported_reason(code, spec)
+    if why is not None:
+        raise NotImplementedError(why)
+    device = torch.device(device)
+    layers = tuple(build_layers(code, spec.schedule))
+    Z = code.Z
+    z = np.arange(Z, dtype=np.int64)
+    idxs = [
+        torch.as_tensor(
+            lay.qc.cols.astype(np.int64)[:, None] * Z
+            + (lay.qc.shifts.astype(np.int64)[:, None] + z[None, :]) % Z,
+            device=device,
+        )
+        for lay in layers
+    ]
+
+    def iteration(V, msgs, active=None):
+        unsat = None
+        for li, idx in enumerate(idxs):
+            msgs[li], parity = _layer_step_qc(V, msgs[li], idx, spec, active)
+            lay_unsat = (parity != 0).any(0)  # [B]
+            unsat = lay_unsat if unsat is None else (unsat | lay_unsat)
+        return unsat
+
+    def decode(llr: torch.Tensor):
+        if not isinstance(llr, torch.Tensor) or llr.dtype != torch.int8:
+            raise TypeError("llr must be an int8 torch tensor")
+        if llr.dim() != 2 or llr.shape[1] != code.N:
+            raise ValueError(f"llr must be [B, {code.N}], got {tuple(llr.shape)}")
+        if llr.device.type != device.type or (
+            device.index is not None and llr.device.index != device.index
+        ):
+            raise ValueError(f"llr is on {llr.device}, decoder on {device}")
+        V = llr.t().contiguous()  # interleave: frame-major -> node-major
+        B = V.shape[1]
+        msgs = [torch.zeros((lay.deg, Z, B), dtype=_ST, device=V.device)
+                for lay in layers]
+        if not spec.early_term:
+            for _ in range(spec.iters):
+                iteration(V, msgs)
+            used = spec.iters
+        else:
+            # the first iteration always runs (messages start at zero)
+            unsat = iteration(V, msgs)
+            used = 1
+            while used < spec.iters and bool(unsat.any()):
+                unsat = unsat & iteration(V, msgs, active=unsat)
+                used += 1
+        bits = (V > 0).to(torch.uint8).t().contiguous()
+        return bits, torch.tensor(used, dtype=torch.int32, device=V.device)
+
+    return decode

@@ -1,0 +1,195 @@
+"""Command-line simulator — the same flags as ``ldpcgputegra_tpu.sim.cli``.
+
+Usage:
+    python -m ldpcgputegra_tpu_torch.sim.cli --code 1944x972 --algo OMS \
+        --min 0.5 --max 3.0 --step 0.25 --fer 100 --iters 10
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from .sweep import SweepConfig, run_sweep
+
+
+class _AwgnAlias(argparse.Action):
+    """Accept the reference's -awgn_jego / -awgn channel selectors as
+    no-ops: AWGN is already the default channel."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        setattr(namespace, "fading", "none")
+        setattr(namespace, "no_channel", False)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ldpc-sim-torch",
+        description="PyTorch/CUDA LDPC BER/FER Monte-Carlo simulator",
+    )
+    g = p.add_argument_group("code / algorithm")
+    g.add_argument("--code", default="1944x972", help="registry name or path")
+    g.add_argument(
+        "--algo", default="OMS", choices=["MS", "OMS", "NMS", "2NMS"]
+    )
+    g.add_argument("--iters", type=int, default=10, help="-iter equivalent")
+    g.add_argument("--offset", type=int, default=1, help="OMS beta")
+    g.add_argument("--nms-factor", dest="nms_f", type=int, default=24,
+                   help="NMS normalization in 1/32 units")
+    g.add_argument("--nms-factor2", dest="nms_f2", type=int, default=28,
+                   help="2NMS second factor in 1/32 units")
+    g.add_argument("--no-early-term", dest="early_term", action="store_false",
+                   help="disable syndrome early termination")
+    g.add_argument("--minclamp", default="pre", choices=["pre", "post"],
+                   help="pre = x86 scalar oracle semantics, post = GPU kernels")
+    g.add_argument("--schedule", default="auto",
+                   choices=["auto", "reference", "colored", "flooding"],
+                   help="layered check order (flooding: not ported yet)")
+    g.add_argument("--backend", default="auto",
+                   choices=["auto", "cuda", "torch", "native"],
+                   help="cuda = hand-written kernel, torch = plain PyTorch "
+                        "(native: not ported yet)")
+    g.add_argument("--device", default=None,
+                   help="torch device (default: cuda when available, else cpu)")
+    p.add_argument("--channel-rng", dest="channel_rng", default="threefry",
+                   choices=["threefry", "philox"],
+                   help="with --backend native (not ported yet)")
+
+    s = p.add_argument_group("SNR sweep")
+    s.add_argument("--min", dest="snr_min", type=float, default=0.5)
+    s.add_argument("--max", dest="snr_max", type=float, default=4.0)
+    s.add_argument("--step", dest="snr_step", type=float, default=0.25,
+                   help="-pas equivalent")
+    s.add_argument("--es-n0", action="store_true", help="-Es/N0 mode")
+    s.add_argument("--qpsk", action="store_true", help="-qpsk modulation")
+    s.add_argument("--norm-channel", action="store_true")
+    s.add_argument("--rayleigh", dest="fading", action="store_const",
+                   const="rayleigh", default="none",
+                   help="flat Rayleigh fading (-Rayleigh_Fading equivalent)")
+    s.add_argument("--no-channel", dest="no_channel", action="store_true",
+                   help="noiseless channel (perfect LLRs; -no-channel)")
+    s.add_argument("--awgn-jego", "--awgn", dest="awgn", nargs=0,
+                   action=_AwgnAlias, help="AWGN channel (the default)")
+    s.add_argument("--inject-flip", dest="inject_flip_p", type=float,
+                   default=0.0,
+                   help="LLR sign-flip fault-injection probability")
+
+    t = p.add_argument_group("stopping / batching")
+    t.add_argument("--batch", "-n", type=int, default=1024,
+                   help="frames per decode call (-n equivalent)")
+    t.add_argument("--fer", dest="max_fe", type=int, default=100,
+                   help="frame-error limit per point")
+    t.add_argument("--no-auto-fe", dest="auto_fe", action="store_false",
+                   help="disable adaptive FE-limit shrink at low BER")
+    t.add_argument("--max-frames", type=int, default=10_000_000)
+    t.add_argument("--timer", dest="timer_s", type=float, default=None,
+                   help="per-point wall-clock budget in seconds")
+    t.add_argument("--qef", "--tfer", dest="qef_fer", type=float,
+                   default=None,
+                   help="stop sweep when FER drops below this value")
+    t.add_argument("--pipeline", dest="pipeline_depth", type=int, default=2,
+                   help="batches kept in flight")
+    t.add_argument("--scan-steps", dest="scan_steps", type=int, default=1,
+                   help="only 1 is ported")
+
+    e = p.add_argument_group("encoder / quantization")
+    e.add_argument("--encoder", default="fake",
+                   choices=["fake", "table", "staircase", "gf2", "auto"],
+                   help="only fake (all-zero) is ported")
+    e.add_argument("--all-zero-bits", dest="random_bits",
+                   action="store_false", help="info bits all zero")
+    e.add_argument("--llr-factor", dest="quant_factor", type=int, default=8,
+                   help="-fraq equivalent (FACTEUR_BETA)")
+    e.add_argument("--llr-bits", dest="bits_llr", type=int, default=6,
+                   help="-llr equivalent (quantizer width)")
+    e.add_argument("--var-bits", type=int, default=8,
+                   help="-var equivalent (APP width; sat 2^(b-1)-1)")
+    e.add_argument("--msg-bits", type=int, default=6,
+                   help="-msg equivalent (message width)")
+    e.add_argument("--ollr", dest="opt_llr", action="store_true",
+                   help="sigma-adaptive LLR quantizer scale (-ollr)")
+    e.add_argument("--info-ber", dest="count_bits", action="store_const",
+                   const="info", default="all",
+                   help="count info-bit errors only; default counts all "
+                        "coded bits")
+
+    o = p.add_argument_group("io")
+    o.add_argument("--seed", type=int, default=1234)
+    o.add_argument("--checkpoint", default=None,
+                   help="JSON checkpoint path for resume")
+    o.add_argument("--metrics", default=None, help="JSONL metrics path")
+    o.add_argument("--quiet", action="store_true")
+    o.add_argument("--histo", action="store_true",
+                   help="print the quantized-LLR histogram of one batch")
+    o.add_argument("--info", action="store_true",
+                   help="print decoder backend/layout info and exit")
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> SweepConfig:
+    fields = {f.name for f in SweepConfig.__dataclass_fields__.values()}
+    kw = {k: v for k, v in vars(args).items() if k in fields}
+    return SweepConfig(**kw)
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    cfg = config_from_args(args)
+    print(
+        f"(II) PyTorch LDPC simulator | code={cfg.code} algo={cfg.algo} "
+        f"iters={cfg.iters} batch={cfg.batch} "
+        f"sweep=[{cfg.snr_min}:{cfg.snr_step}:{cfg.snr_max}] dB"
+    )
+    if args.info:
+        _print_info(cfg)
+        return
+    if args.histo:
+        _print_histo(cfg)
+    run_sweep(cfg, progress=not args.quiet)
+
+
+def _spec(cfg: SweepConfig):
+    from ..ops.layered import LayeredSpec
+
+    return LayeredSpec(algo=cfg.algo, iters=cfg.iters, offset=cfg.offset,
+                       early_term=cfg.early_term, minclamp=cfg.minclamp,
+                       schedule=cfg.schedule, nms_f=cfg.nms_f,
+                       nms_f2=cfg.nms_f2)
+
+
+def _print_info(cfg: SweepConfig) -> None:
+    """Backend/layout report (the reference's -info kernel report)."""
+    import torch
+
+    from ..codes.registry import load_code
+    from ..decoder import backend_for, default_device
+
+    code = load_code(cfg.code)
+    device = torch.device(cfg.device) if cfg.device else default_device()
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"(II) device       : {device} ({name})")
+    print(f"(II) code         : N={code.N} K={code.K} M={code.M} "
+          f"checks={code.n_checks} Z={code.Z} rate={code.rate:.3f}")
+    print(f"(II) layers       : {len(code.layers)} "
+          f"(qc {sum(1 for l in code.layers if l.qc is not None)})")
+    print(f"(II) backend      : {backend_for(code, _spec(cfg), device, cfg.backend)}")
+
+
+def _print_histo(cfg: SweepConfig) -> None:
+    from ..channel.awgn import AwgnChannel, ChannelSpec
+    from ..codes.registry import load_code
+    from ..decoder import default_device
+    from ..quant import QuantSpec, print_llr_histogram
+
+    code = load_code(cfg.code)
+    quant = QuantSpec(factor=cfg.quant_factor, bits_llr=cfg.bits_llr)
+    chan = AwgnChannel(code.N, code.K, ChannelSpec(
+        qpsk=cfg.qpsk, es_n0=cfg.es_n0, normalize=cfg.norm_channel,
+        fading=cfg.fading, quant=quant), cfg.device or default_device())
+    chan.configure(cfg.snr_min)
+    llr = chan.generate_zero_int8(chan.generator(cfg.seed), cfg.batch)
+    print_llr_histogram(llr, quant)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,79 @@
+"""The CUDA layered min-sum kernel against its plain PyTorch version, on the
+card.  Every test here needs an NVIDIA GPU and skips without one.
+
+On a machine with a card (and without jax, which ``tests/conftest.py``
+imports), run:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import glob
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from ldpcgputegra_tpu_torch.codes.registry import load_code
+from ldpcgputegra_tpu_torch.kernels import layered as K
+from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec, make_layered_decoder
+
+pytestmark = pytest.mark.cuda
+
+VEC_DIR = os.path.join(os.path.dirname(__file__), "vectors")
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _llrs(n, b, seed, std=0.8):
+    rng = np.random.default_rng(seed)
+    return np.clip(8.0 * rng.normal(-1.0, std, size=(b, n)), -31, 31).astype(
+        np.int8)
+
+
+@pytest.mark.parametrize("name", ["576x288", "1944x972", "2304x1152",
+                                  "155x93", "1248x624"])
+@pytest.mark.parametrize("algo,minclamp", [("OMS", "pre"), ("MS", "post"),
+                                           ("NMS", "pre"), ("2NMS", "post")])
+@pytest.mark.parametrize("et", [False, True])
+def test_kernel_matches_plain(dev, name, algo, minclamp, et):
+    code = load_code(name)
+    spec = LayeredSpec(algo=algo, iters=6, minclamp=minclamp, early_term=et)
+    llr = torch.from_numpy(_llrs(code.N, 257, seed=3, std=0.6)).to(dev)
+    kb, ki = K.make_cuda_decoder(code, spec)(llr)
+    pb, pi = make_layered_decoder(code, spec, dev)(llr)
+    assert torch.equal(kb, pb)
+    assert int(ki) == int(pi)
+
+
+def test_kernel_golden_vectors(dev):
+    paths = [p for p in sorted(glob.glob(os.path.join(VEC_DIR, "*.npz")))
+             if not os.path.basename(p).startswith("refcheck_")]
+    for path in paths:
+        d = np.load(path)
+        spec = LayeredSpec(algo=str(d["algo"]), iters=int(d["iters"]),
+                           minclamp=str(d["minclamp"]), offset=int(d["offset"]))
+        dec = K.make_cuda_decoder(load_code(str(d["code"])), spec)
+        bits, _ = dec(torch.from_numpy(d["llr"]).to(dev))
+        np.testing.assert_array_equal(bits.cpu().numpy(), d["bits"], path)
+
+
+def test_kernel_counts_launches_and_checks_inputs(dev):
+    code = load_code("576x288")
+    dec = K.make_cuda_decoder(code, LayeredSpec(iters=3))
+    llr = torch.from_numpy(_llrs(code.N, 64, seed=1)).to(dev)
+    before = K.launches["layered_minsum"]
+    dec(llr)
+    assert K.launches["layered_minsum"] == before + 1
+    with pytest.raises(TypeError):
+        dec(llr.to(torch.int16))
+    with pytest.raises(ValueError):
+        dec(llr.t().contiguous().t())  # not contiguous
+    with pytest.raises(ValueError):
+        dec(llr[:, :-1].contiguous())
+    assert K.launches["layered_minsum"] == before + 1

@@ -1,0 +1,156 @@
+"""The plain PyTorch layered decoder against the JAX package's XLA decoder,
+the committed vectors and the golden oracle: bit-exact in bits and
+``iters_used``.  Inputs come from a numpy seed and go to both as the same
+int8 arrays.
+"""
+
+import glob
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from ldpcgputegra_tpu.codes.registry import load_code as j_load_code
+from ldpcgputegra_tpu.golden.decoder import GoldenParams, decode_golden
+from ldpcgputegra_tpu.ops.layered import LayeredSpec as JSpec
+from ldpcgputegra_tpu.ops.layered import make_layered_decoder as j_decoder
+from ldpcgputegra_tpu_torch.codes.registry import load_code
+from ldpcgputegra_tpu_torch.kernels.layered import make_cuda_decoder
+from ldpcgputegra_tpu_torch.ops.layered import (
+    LayeredSpec,
+    make_layered_decoder,
+)
+
+VEC_DIR = os.path.join(os.path.dirname(__file__), "vectors")
+VECTORS = sorted(p for p in glob.glob(os.path.join(VEC_DIR, "*.npz"))
+                 if not os.path.basename(p).startswith("refcheck_"))
+
+
+def _llrs(n, b, seed, std):
+    """int8 all-zero-codeword LLRs; ``std`` is a scalar or one per frame."""
+    rng = np.random.default_rng(seed)
+    std = np.broadcast_to(np.asarray(std, dtype=np.float64), (b,))[:, None]
+    return np.clip(8.0 * (-1.0 + std * rng.standard_normal((b, n))),
+                   -31, 31).astype(np.int8)
+
+
+def _batches(n, b=48, seed=0):
+    """A mixed batch (frames converge at different iterations, some never)
+    and a clean one (all converge early)."""
+    return [_llrs(n, b, seed, np.linspace(0.35, 0.95, b)),
+            _llrs(n, b, seed + 1, 0.4)]
+
+
+def _check(name, kw, batches):
+    port = make_layered_decoder(load_code(name), LayeredSpec(**kw))
+    ref = j_decoder(j_load_code(name), JSpec(**kw))
+    for llr in batches:
+        bits, iters = port(torch.from_numpy(llr))
+        rb, ri = ref(llr)
+        assert bits.dtype == torch.uint8 and iters.dtype == torch.int32
+        np.testing.assert_array_equal(bits.numpy(), np.asarray(rb))
+        assert int(iters) == int(ri)
+
+
+@pytest.mark.parametrize("et", [False, True])
+@pytest.mark.parametrize("minclamp", ["pre", "post"])
+@pytest.mark.parametrize("algo", ["MS", "OMS", "NMS", "2NMS"])
+def test_plain_matches_jax_all_variants(algo, minclamp, et):
+    """Every algorithm x minclamp x ET on 155x93 (odd Z = 31)."""
+    _check("155x93", dict(algo=algo, iters=5, minclamp=minclamp,
+                          early_term=et), _batches(155, b=64))
+
+
+@pytest.mark.parametrize("et", [False, True])
+@pytest.mark.parametrize("name", ["576x288", "1944x972", "2304x1152"])
+def test_plain_matches_jax_main_codes(name, et):
+    """The main-path codes, OMS/pre, with ET off and on."""
+    _check(name, dict(algo="OMS", iters=4, early_term=et),
+           _batches(j_load_code(name).N, seed=3))
+
+
+def test_et_freezes_converged_frames():
+    """ET output of each frame equals a fixed-iteration decode stopped at
+    that frame's own convergence iteration (golden per-frame count)."""
+    code = load_code("576x288")
+    gcode = j_load_code("576x288")
+    llr = _llrs(code.N, 12, 7, np.linspace(0.35, 0.9, 12))
+    bits, iters = make_layered_decoder(
+        code, LayeredSpec(iters=6, early_term=True))(torch.from_numpy(llr))
+    gp = GoldenParams(algo="OMS", iters=6, early_term=True)
+    used = []
+    for f in range(llr.shape[0]):
+        gb, gi = decode_golden(gcode, llr[f], gp)
+        used.append(gi)
+        np.testing.assert_array_equal(bits[f].numpy(), gb)
+    assert int(iters) == max(used)
+    assert min(used) < max(used)  # the batch really mixes convergence times
+
+
+@pytest.mark.parametrize("path", VECTORS, ids=os.path.basename)
+def test_plain_matches_committed_vectors(path):
+    d = np.load(path)
+    spec = LayeredSpec(algo=str(d["algo"]), iters=int(d["iters"]),
+                       minclamp=str(d["minclamp"]), offset=int(d["offset"]))
+    bits, iters = make_layered_decoder(load_code(str(d["code"])), spec)(
+        torch.from_numpy(d["llr"]))
+    np.testing.assert_array_equal(bits.numpy(), d["bits"])
+    assert int(iters) == int(d["iters"])
+
+
+@pytest.mark.parametrize("algo,minclamp", [("OMS", "pre"), ("2NMS", "post")])
+def test_plain_matches_golden(algo, minclamp):
+    code = load_code("576x288")
+    gcode = j_load_code("576x288")
+    llr = _llrs(code.N, 4, 11, 0.8)
+    bits, _ = make_layered_decoder(
+        code, LayeredSpec(algo=algo, iters=3, minclamp=minclamp))(
+            torch.from_numpy(llr))
+    gp = GoldenParams(algo=algo, iters=3, minclamp=minclamp)
+    for f in range(llr.shape[0]):
+        np.testing.assert_array_equal(bits[f].numpy(),
+                                      decode_golden(gcode, llr[f], gp)[0])
+
+
+def test_cuda_wrapper_runs_plain_on_cpu_tensors():
+    code = load_code("576x288")
+    spec = LayeredSpec(iters=3, early_term=True)
+    llr = torch.from_numpy(_llrs(code.N, 20, 2, 0.6))
+    kb, ki = make_cuda_decoder(code, spec)(llr)
+    pb, pi = make_layered_decoder(code, spec)(llr)
+    assert torch.equal(kb, pb) and int(ki) == int(pi)
+
+
+def test_decoder_input_checks():
+    code = load_code("576x288")
+    dec = make_layered_decoder(code, LayeredSpec(iters=2))
+    with pytest.raises(TypeError):
+        dec(torch.zeros((2, code.N), dtype=torch.int16))
+    with pytest.raises(ValueError):
+        dec(torch.zeros((2, code.N + 1), dtype=torch.int8))
+    wrap = make_cuda_decoder(code, LayeredSpec(iters=2))
+    with pytest.raises(ValueError, match="no kernel"):
+        wrap(torch.zeros((2, code.N), dtype=torch.int8, device="meta"))
+
+
+def test_layered_spec_validation_matches_reference():
+    for bad in (dict(sat_var=128), dict(sat_msg=0), dict(nms_f=33),
+                dict(nms_f2=0)):
+        with pytest.raises(ValueError):
+            JSpec(**bad)
+        with pytest.raises(ValueError):
+            LayeredSpec(**bad)
+    assert [f.name for f in LayeredSpec.__dataclass_fields__.values()] == [
+        f.name for f in JSpec.__dataclass_fields__.values()]
+    assert LayeredSpec() == LayeredSpec(**JSpec().__dict__)
+
+
+def test_unported_codes_and_schedules_raise():
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        make_layered_decoder(load_code("200x100"), LayeredSpec())
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        make_layered_decoder(load_code("576x288"),
+                             LayeredSpec(schedule="flooding"))
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        make_cuda_decoder(load_code("576x288"), LayeredSpec(schedule="colored"))
