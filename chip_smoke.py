@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernel from ``ldpcgputegra_tpu_torch/csrc/``,
-holds it against the committed golden vectors and against the plain
-PyTorch decoder on the card, times both, then drives the port's main path
-(``run_sweep`` and the CLI) and checks that it went through the kernel.
-Imports nothing of JAX.  Exits non-zero, before printing any result, when
-there is no CUDA device or the package is not beside this script; any
-failing phase exits non-zero.  The last line of standard output is
-``{"ok": true, "device": {...}}``; the line before it lists each kernel
-with its launches on the main path, its largest disagreement with the
-plain version, and its time and the plain version's.
+Builds the hand-written CUDA kernels from ``ldpcgputegra_tpu_torch/csrc/``
+(one nvcc per source, all at once): the QC kernel (``layered_minsum``) and
+the gather kernel for non-QC codes (``gather_minsum``).  Holds the QC
+kernel against the committed golden vectors, and each kernel against the
+plain PyTorch decoder on the card; times both; then drives each kernel's
+path (``run_sweep`` and the CLI, at 1944x972 and at 4000x2000) and checks
+that it went through the kernel.  Imports nothing of JAX.  Exits non-zero,
+before printing any result, when there is no CUDA device or the package is
+not beside this script; any failing phase exits non-zero.  The last line of
+standard output is ``{"ok": true, "device": {...}}``; the line before it
+lists each kernel with its launches on its path, its largest disagreement
+with the plain version, and its time and the plain version's.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import math
 import os
 import subprocess
 import sys
-import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -39,6 +41,103 @@ def _llrs(N: int, B: int, snr_db: float, seed: int):
     return np.clip(8.0 * y, -31, 31).astype(np.int8)
 
 
+def _hold(make_kernel_decoder, tag, cases, dev, seed0=100) -> int:
+    """Decode each case with the kernel and with the plain version on the
+    card; both must give the same bits and ``iters_used``.  A case is
+    (code, B, algo, minclamp, early_term, SNR dB[, schedule]).  Returns the
+    largest |bit difference| (0); fails unless early termination ended
+    some decode early."""
+    import torch
+
+    from ldpcgputegra_tpu_torch.codes.registry import load_code
+    from ldpcgputegra_tpu_torch.ops.layered import (
+        LayeredSpec,
+        make_layered_decoder,
+    )
+
+    max_err = 0
+    et_iters = []
+    for i, (name, B, algo, mc, et, snr, *sched) in enumerate(cases):
+        code = load_code(name)
+        schedule = sched[0] if sched else "auto"
+        spec = LayeredSpec(algo=algo, iters=10, minclamp=mc, early_term=et,
+                           schedule=schedule)
+        llr = torch.from_numpy(_llrs(code.N, B, snr, seed=seed0 + i)).to(dev)
+        kb, ki = make_kernel_decoder(code, spec)(llr)
+        pb, pi = make_layered_decoder(code, spec, dev)(llr)
+        torch.cuda.synchronize()
+        err = int((kb.to(torch.int16) - pb.to(torch.int16)).abs().max())
+        max_err = max(max_err, err)
+        ch_err = int((llr > 0).sum())
+        print(f"[{tag}] {name} B={B} {algo}/{mc} ET={et} {schedule} {snr} dB: "
+              f"max|bits diff|={err} iters kernel={int(ki)} plain={int(pi)} "
+              f"channel bit errors={ch_err} decoded={int(kb.sum())}")
+        assert err == 0 and int(ki) == int(pi), "kernel disagrees with plain"
+        assert et or int(ki) == 10, "fixed iterations must report iters"
+        if et:
+            et_iters.append(int(ki))
+    assert min(et_iters) < 10, "early termination never ended a decode early"
+    return max_err
+
+
+def _throughput(kdec, pdec, name, B, smi, dev, seed0):
+    """Kernel and plain ms per call at OMS 10, ET off (``measure_call``)."""
+    import torch
+
+    from ldpcgputegra_tpu_torch.bench import measure_call, throughput_report
+
+    N = int(name.split("x")[0])
+    inputs = [torch.from_numpy(_llrs(N, B, 2.0, seed=seed0 + s)).to(dev)
+              for s in range(3)]
+    t_k = measure_call(kdec, inputs)
+    t_p = measure_call(pdec, inputs, k_small=2, k_large=6, repeats=2)
+    for label, t in (("kernel", t_k), ("plain", t_p)):
+        r = throughput_report(t, B, N)
+        print(f"[throughput] {name} B={B} OMS 10it ET off {label}: "
+              f"{r['ms_per_call']:.4f} ms/call, {r['coded_mbps']:.1f} coded "
+              f"Mbit/s | {smi}")
+    return t_k, t_p
+
+
+def _main_path(code_name, batch, snr, cli_snr, max_frames, dev, counter, key):
+    """``run_sweep`` at two SNR points and the CLI at one, on the card;
+    returns the kernel launches they made.  FER must fall with SNR and the
+    decoded BER must be below the raw channel BER."""
+    import torch
+
+    from ldpcgputegra_tpu_torch.channel.awgn import AwgnChannel
+    from ldpcgputegra_tpu_torch.codes.registry import load_code
+    from ldpcgputegra_tpu_torch.sim import cli
+    from ldpcgputegra_tpu_torch.sim.sweep import SweepConfig, run_sweep
+
+    code = load_code(code_name)
+    counter[key] = 0
+    res = run_sweep(SweepConfig(
+        code=code_name, algo="OMS", iters=10, early_term=True, batch=batch,
+        snr_min=snr[0], snr_max=snr[1], snr_step=snr[1] - snr[0], max_fe=50,
+        max_frames=max_frames, device="cuda",
+    ), progress=False)
+    cli.main(["--code", code_name, "--min", str(cli_snr), "--max", str(cli_snr),
+              "--fer", "20", "--batch", str(batch), "--max-frames",
+              str(8 * batch), "--quiet", "--device", "cuda"])
+    torch.cuda.synchronize()
+    n_launch = counter[key]
+    print(f"[main-path] {code_name}: {key} launches: {n_launch}")
+    assert n_launch > 0, "the main path did not run the kernel"
+    p_lo, p_hi = res.points
+    assert p_hi.fer < p_lo.fer, "FER does not fall with SNR"
+    for p in res.points:
+        ch = AwgnChannel(code.N, code.K, device=dev)
+        ch.configure(p.snr_db)
+        raw = float((ch.generate_zero_int8(ch.generator(7), 4096) > 0)
+                    .float().mean())
+        print(f"[main-path] {code_name} {p.snr_db} dB: frames={p.frames} "
+              f"FE={p.fe} FER={p.fer:.4e} BER={p.ber:.4e} raw channel "
+              f"BER={raw:.4e} ({p.mbps:.1f} coded Mbit/s wall clock)")
+        assert p.ber < raw, "decoding did not lower the BER"
+    return n_launch
+
+
 def main() -> int:
     import torch
 
@@ -47,12 +146,11 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from ldpcgputegra_tpu_torch.bench import measure_call, throughput_report
     from ldpcgputegra_tpu_torch.codes.registry import load_code
+    from ldpcgputegra_tpu_torch.decoder import backend_for
+    from ldpcgputegra_tpu_torch.kernels import gather as G
     from ldpcgputegra_tpu_torch.kernels import layered as K
     from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec, make_layered_decoder
-    from ldpcgputegra_tpu_torch.sim import cli
-    from ldpcgputegra_tpu_torch.sim.sweep import SweepConfig, run_sweep
 
     assert "jax" not in sys.modules, "the port must not import jax"
     dev = torch.device("cuda", 0)
@@ -68,13 +166,17 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     print(f"[device] nvidia-smi: {smi}")
 
-    # 2. build
-    info = K.build()
-    print(f"[build] {os.path.relpath(info['path'], HERE)} in "
-          f"{info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[build] {line.strip()}")
+    # 2. build: one nvcc per source, all started together
+    with ThreadPoolExecutor(2) as pool:
+        builds = {"layered_minsum": pool.submit(K.build),
+                  "gather_minsum": pool.submit(G.build)}
+        builds = {name: f.result() for name, f in builds.items()}
+    for name, info in builds.items():
+        print(f"[build] {name}: {os.path.relpath(info['path'], HERE)} in "
+              f"{info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build] {line.strip()}")
 
     # 3. kernel vs the committed golden vectors (fixed iterations)
     vecs = sorted(p for p in glob.glob(os.path.join(HERE, "tests", "vectors",
@@ -94,9 +196,7 @@ def main() -> int:
               "bit-exact")
 
     # 4. kernel vs the plain version on the card: bits and iters_used
-    max_err = 0
-    et_iters = []
-    cases = [
+    max_err = _hold(K.make_cuda_decoder, "vs-plain", [
         ("2304x1152", 8192, "OMS", "pre", False, 2.0),
         ("2304x1152", 8192, "OMS", "pre", True, 2.0),
         ("1944x972", 8192, "OMS", "pre", False, 2.0),
@@ -107,78 +207,72 @@ def main() -> int:
         ("1944x972", 1024, "MS", "post", True, 2.0),
         ("1944x972", 1024, "NMS", "post", True, 2.0),
         ("2304x1152", 1024, "2NMS", "post", True, 2.0),
-    ]
-    for i, (name, B, algo, mc, et, snr) in enumerate(cases):
-        code = load_code(name)
-        spec = LayeredSpec(algo=algo, iters=10, minclamp=mc, early_term=et)
-        llr = torch.from_numpy(_llrs(code.N, B, snr, seed=100 + i)).to(dev)
-        kb, ki = K.make_cuda_decoder(code, spec)(llr)
-        pb, pi = make_layered_decoder(code, spec, dev)(llr)
-        torch.cuda.synchronize()
-        err = int((kb.to(torch.int16) - pb.to(torch.int16)).abs().max())
-        max_err = max(max_err, err)
-        ch_err = int((llr > 0).sum())
-        print(f"[vs-plain] {name} B={B} {algo}/{mc} ET={et} {snr} dB: "
-              f"max|bits diff|={err} iters kernel={int(ki)} plain={int(pi)} "
-              f"channel bit errors={ch_err} decoded={int(kb.sum())}")
-        assert err == 0 and int(ki) == int(pi), "kernel disagrees with plain"
-        assert et or int(ki) == 10, "fixed iterations must report iters"
-        if et:
-            et_iters.append(int(ki))
-    assert min(et_iters) < 10, "early termination never ended a decode early"
+    ], dev)
 
     # 5. throughput at the bench configuration
     code = load_code("2304x1152")
     spec = LayeredSpec(algo="OMS", iters=10)
-    inputs = [torch.from_numpy(_llrs(code.N, 8192, 2.0, seed=200 + s)).to(dev)
-              for s in range(3)]
-    kdec = K.make_cuda_decoder(code, spec)
-    pdec = make_layered_decoder(code, spec, dev)
-    t_k = measure_call(kdec, inputs)
-    t_p = measure_call(pdec, inputs, k_small=2, k_large=6, repeats=2)
-    for label, t in (("kernel", t_k), ("plain", t_p)):
-        r = throughput_report(t, 8192, code.N)
-        print(f"[throughput] 2304x1152 B=8192 OMS 10it ET off {label}: "
-              f"{r['ms_per_call']:.4f} ms/call, {r['coded_mbps']:.1f} coded "
-              f"Mbit/s | {smi}")
+    t_k, t_p = _throughput(K.make_cuda_decoder(code, spec),
+                           make_layered_decoder(code, spec, dev),
+                           "2304x1152", 8192, smi, dev, seed0=200)
 
-    # 6. the main path: sweep + CLI, counted launches
-    K.launches["layered_minsum"] = 0
-    res = run_sweep(SweepConfig(
-        code="1944x972", algo="OMS", iters=10, early_term=True, batch=1024,
-        snr_min=1.5, snr_max=2.5, snr_step=1.0, max_fe=50,
-        max_frames=64 * 1024, device="cuda",
-    ), progress=False)
-    cli.main(["--code", "1944x972", "--min", "2.0", "--max", "2.0",
-              "--fer", "20", "--batch", "1024", "--max-frames", "8192",
-              "--quiet", "--device", "cuda"])
-    torch.cuda.synchronize()
-    n_launch = K.launches["layered_minsum"]
-    print(f"[main-path] layered_minsum launches: {n_launch}")
-    assert n_launch > 0, "the main path did not run the kernel"
-    p_lo, p_hi = res.points
-    assert p_hi.fer < p_lo.fer, "FER does not fall with SNR"
-    from ldpcgputegra_tpu_torch.channel.awgn import AwgnChannel
+    # 6. the QC path: sweep + CLI at 1944x972, counted launches
+    n_launch = _main_path("1944x972", 1024, (1.5, 2.5), 2.0, 64 * 1024, dev,
+                          K.launches, "layered_minsum")
 
-    for p in res.points:
-        ch = AwgnChannel(1944, 972, device=dev)
-        ch.configure(p.snr_db)
-        raw = float((ch.generate_zero_int8(ch.generator(7), 4096) > 0)
-                    .float().mean())
-        print(f"[main-path] {p.snr_db} dB: frames={p.frames} FE={p.fe} "
-              f"FER={p.fer:.4e} BER={p.ber:.4e} raw channel BER={raw:.4e} "
-              f"({p.mbps:.1f} coded Mbit/s wall clock)")
-        assert p.ber < raw, "decoding did not lower the BER"
+    # 7. gather kernel vs the plain version on the card: bits and iters_used
+    g_err = _hold(G.make_gather_decoder, "gather-vs-plain", [
+        ("4000x2000", 4096, "OMS", "pre", False, 2.0),
+        ("4000x2000", 4096, "OMS", "pre", True, 2.5),
+        ("8000x4000", 2048, "OMS", "pre", True, 2.5),
+        ("9972x4986", 2048, "OMS", "pre", False, 2.0),
+        ("20000x10000", 1024, "OMS", "pre", True, 2.5),
+        ("2048x384", 1024, "OMS", "pre", True, 4.0),
+        ("1024x518", 1000, "OMS", "pre", True, 4.0),
+        ("4000x2000", 1024, "MS", "post", True, 2.5),
+        ("4000x2000", 1024, "NMS", "post", True, 2.5),
+        ("4000x2000", 1024, "2NMS", "post", True, 2.5),
+        ("200x100", 1024, "OMS", "pre", True, 4.0, "reference"),
+    ], dev, seed0=300)
 
+    # 8. gather throughput at the suite's batches
+    g_times = {}
+    for name, B in (("4000x2000", 4096), ("8000x4000", 2048),
+                    ("20000x10000", 1024)):
+        code = load_code(name)
+        spec = LayeredSpec(algo="OMS", iters=10)
+        g_times[name] = _throughput(
+            G.make_gather_decoder(code, spec),
+            make_layered_decoder(code, spec, dev), name, B, smi, dev,
+            seed0=400)
+
+    # 9. the gather path: sweep + CLI at 4000x2000, counted launches
+    g_launch = _main_path("4000x2000", 4096, (1.5, 2.0), 2.0, 16 * 4096, dev,
+                          G.launches, "gather_minsum")
+
+    # "route" is how the kernel is written (CUDA C++); "backend" is the
+    # decoder backend that ``auto`` resolves to on the path it was driven on
+    spec = LayeredSpec(algo="OMS", iters=10, early_term=True)
     print(json.dumps({"kernels": [{
         "name": "layered_minsum",
         "route": "cuda",
+        "backend": backend_for(load_code("1944x972"), spec, dev),
         "source": "ldpcgputegra_tpu_torch/csrc/layered_minsum.cu",
         "replaces": K.REPLACES,
         "launches": n_launch,
         "max_abs_err": max_err,
         "ms": t_k * 1e3,
         "plain_ms": t_p * 1e3,
+    }, {
+        "name": "gather_minsum",
+        "route": "cuda",
+        "backend": backend_for(load_code("4000x2000"), spec, dev),
+        "source": "ldpcgputegra_tpu_torch/csrc/gather_minsum.cu",
+        "replaces": G.REPLACES,
+        "launches": g_launch,
+        "max_abs_err": g_err,
+        "ms": g_times["4000x2000"][0] * 1e3,
+        "plain_ms": g_times["4000x2000"][1] * 1e3,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

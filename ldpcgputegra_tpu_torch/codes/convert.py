@@ -5,7 +5,8 @@ JAX package's ``LdpcCode`` (plain numpy arrays and ints), so tests can
 hold the port's own ``load_code`` against the reference code object.
 
 ``qc_tables`` turns a code's QC block-rows into the small int32 tables
-the CUDA kernel walks.
+the QC kernel walks; ``gather_tables`` turns the layers of any schedule
+into the per-edge tables the gather kernel walks.
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ import numpy as np
 import torch
 
 from .code import DegreeClass, LdpcCode
+from .schedule import build_layers
 
-__all__ = ["code_from_numpy", "qc_tables"]
+__all__ = ["code_from_numpy", "qc_tables", "gather_tables"]
 
 
 def code_from_numpy(
@@ -74,3 +76,28 @@ def qc_tables(code: LdpcCode, device) -> dict[str, torch.Tensor]:
 
     return {"row_ptr": t(row_ptr), "deg": t(deg), "edge_offset": t(edge_offset),
             "cols": t(cols), "shifts": t(shifts)}
+
+
+def gather_tables(code: LdpcCode, spec, device) -> dict[str, torch.Tensor]:
+    """The layers of ``build_layers(code, spec.schedule)`` as device
+    tensors, in schedule order.
+
+    Layer l has ``n_checks[l]`` checks of degree ``deg[l]``; its edge slots
+    are ``row_ptr[l] : row_ptr[l+1]``, degree-major: edge j of check g is
+    slot ``row_ptr[l] + j * n_checks[l] + g``, and ``vn[slot]`` is its VN
+    (uint16 values stored as int16, so N < 65536).
+    """
+    if code.N > 65535:
+        raise ValueError(f"{code.name}: N={code.N} does not fit uint16 VN ids")
+    layers = build_layers(code, spec.schedule)
+    n_checks = np.asarray([lay.n_checks for lay in layers], dtype=np.int32)
+    deg = np.asarray([lay.deg for lay in layers], dtype=np.int32)
+    row_ptr = np.concatenate([[0], np.cumsum(n_checks * deg)]).astype(np.int32)
+    vn = np.concatenate([lay.idx.T.ravel() for lay in layers])
+    return {
+        "row_ptr": torch.as_tensor(row_ptr, device=device),
+        "n_checks": torch.as_tensor(n_checks, device=device),
+        "deg": torch.as_tensor(deg, device=device),
+        "vn": torch.as_tensor(vn.astype(np.uint16).view(np.int16),
+                              device=device),
+    }

@@ -23,7 +23,7 @@ DATA_DIR = os.path.normpath(os.path.join(
 ))
 
 __all__ = ["DATA_DIR", "list_codes", "load_code", "make_qc_code",
-           "make_random_qc_code"]
+           "make_random_qc_code", "make_random_regular_code"]
 
 
 def list_codes() -> list[str]:
@@ -144,6 +144,39 @@ def make_qc_code(
         name=name, N=N, K=K, classes=tuple(classes),
         class_idx=tuple(class_idx), Z=Z,
     )
+
+
+def make_random_regular_code(
+    N: int, K: int, deg: int, seed: int = 0, name: Optional[str] = None
+) -> LdpcCode:
+    """Random (deg_v, deg_c)-regular Gallager-style code (no QC structure),
+    by random edge permutation with collision repair.  Same draws as the
+    JAX package's generator, so one seed gives one code in both."""
+    n_checks = N - K
+    M = n_checks * deg
+    assert M % N == 0, "variable degree must be integral"
+    dv = M // N
+    rng = np.random.default_rng(seed)
+    stubs = np.repeat(np.arange(N, dtype=np.int32), dv)
+    rng.shuffle(stubs)
+    idx = stubs.reshape(n_checks, deg)
+    # repair duplicate VNs within a check by swapping with random other rows
+    for _ in range(100 * n_checks):
+        bad = [c for c in range(n_checks) if np.unique(idx[c]).size < deg]
+        if not bad:
+            return LdpcCode.from_edges(
+                name or f"rand{N}x{K}d{deg}s{seed}", N, K,
+                [(deg, n_checks)], idx.ravel(), detect_qc=False,
+            )
+        for c in bad:
+            vals, counts = np.unique(idx[c], return_counts=True)
+            dup = vals[counts > 1][0]
+            j = int(np.nonzero(idx[c] == dup)[0][0])
+            c2 = int(rng.integers(n_checks))
+            j2 = int(rng.integers(deg))
+            if idx[c2, j2] not in idx[c] and dup not in np.delete(idx[c2], j2):
+                idx[c, j], idx[c2, j2] = idx[c2, j2], idx[c, j]
+    raise RuntimeError("failed to sample a simple regular code")
 
 
 def make_random_qc_code(

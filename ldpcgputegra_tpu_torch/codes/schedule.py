@@ -21,6 +21,7 @@ Two schedules are provided:
 
 from __future__ import annotations
 
+import weakref
 from typing import Sequence
 
 import numpy as np
@@ -28,6 +29,9 @@ import numpy as np
 from .code import Layer, LdpcCode
 
 __all__ = ["color_layers", "build_layers"]
+
+# id(code) -> (weak reference to the code, its colored layers)
+_colored: dict[int, tuple] = {}
 
 
 def color_layers(code: LdpcCode) -> list[Layer]:
@@ -38,7 +42,22 @@ def color_layers(code: LdpcCode) -> list[Layer]:
     least-filled class among admissible colors to balance layer sizes.
     Layers keep one uniform degree each (degree classes are colored
     separately so the index tables stay rectangular).
+
+    The pass is pure Python, and routing, the fit check, the kernel's
+    tables and the plain decoder all ask for the same layers: they are
+    computed once per code object, while it lives.
     """
+    key = id(code)
+    hit = _colored.get(key)
+    if hit is not None and hit[0]() is code:
+        return hit[1]
+    layers = _color(code)
+    _colored[key] = (weakref.ref(code, lambda _: _colored.pop(key, None)),
+                     layers)
+    return layers
+
+
+def _color(code: LdpcCode) -> list[Layer]:
     layers: list[Layer] = []
     edge_offset = 0
     for ci in code.class_idx:

@@ -13,10 +13,9 @@ the APP reads and writes, in shared memory: a CTA holds its tile of 32
 codewords' APP array there ([N][32] int8), and lays the messages out
 codeword-fastest so that a warp moves 32 contiguous bytes per edge.
 
-The kernel is compiled at first use with ``nvcc -gencode
-arch=compute_90a,code=sm_90a`` into ``ldpcgputegra_tpu_torch/_build/``
-(git-ignored), from this checkout's sources only, and loaded with ctypes.
-Importing this module needs neither nvcc nor CUDA.
+The kernel is compiled at first use (``kernels/_lib.py``), from this
+checkout's sources only, and loaded with ctypes.  Importing this module
+needs neither nvcc nor CUDA.
 
 On a CPU tensor the decoder runs the plain version
 (``ops/layered.py::make_layered_decoder``); on a CUDA tensor it launches
@@ -26,38 +25,33 @@ the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import time
 from typing import Optional
 
 import torch
 
 from ..codes.code import LdpcCode
 from ..codes.convert import qc_tables
+from ..codes.schedule import build_layers
 from ..ops.layered import LayeredSpec, make_layered_decoder, unsupported_reason
+from . import _lib
 
 __all__ = ["make_cuda_decoder", "cuda_supported", "build", "launches",
            "SOURCE", "REPLACES"]
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "layered_minsum.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCE = os.path.join(_lib.CSRC, "layered_minsum.cu")
+BUILD_DIR = _lib.BUILD_DIR
 REPLACES = "ldpcgputegra_tpu/kernels/pallas_layered.py:139"  # _build_kernel
 
 # mirrored from csrc/layered_minsum.cu
 _TB = 32
 _MAX_DEG = 32
-_SMEM_MAX = 232448  # dynamic shared memory a block can use on Hopper
-_ALGO = {"MS": 0, "OMS": 1, "NMS": 2, "2NMS": 3}
 
 # Kernel launches in this process, by kernel name: the decoder adds one
 # where it launches the kernel, and nowhere else.
 launches = {"layered_minsum": 0}
 
-_lib: Optional[ctypes.CDLL] = None
+_lib_handle: Optional[ctypes.CDLL] = None
 
 
 def _smem_bytes(code: LdpcCode) -> int:
@@ -66,53 +60,23 @@ def _smem_bytes(code: LdpcCode) -> int:
     return app + 4 * (2 * n_edges + len(code.layers) + 1 + _TB)
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-    return path
-
-
 def build() -> dict:
-    """Compile the kernel library if this source has not been built yet.
-
-    Returns ``{"path", "seconds", "log"}``; ``seconds`` is 0 and ``log``
-    empty when the library was already there.  The library's name carries
-    a hash of the source, so an edited source is rebuilt.
-    """
-    with open(SOURCE, "rb") as f:
-        tag = hashlib.sha1(f.read()).hexdigest()[:12]
-    path = os.path.join(BUILD_DIR, f"layered_minsum-{tag}.so")
-    if os.path.exists(path):
-        return {"path": path, "seconds": 0.0, "log": ""}
-    nvcc = _nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, SOURCE]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, path)  # atomic: concurrent builds agree on one file
-    return {"path": path, "seconds": seconds, "log": res.stdout + res.stderr}
+    """Compile the kernel library if this source has not been built yet;
+    ``{"path", "seconds", "log"}`` (see ``_lib.build_library``)."""
+    return _lib.build_library(SOURCE, BUILD_DIR)
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
+    global _lib_handle
+    if _lib_handle is None:
         lib = ctypes.CDLL(build()["path"])
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.layered_minsum_launch.argtypes = [p] * 7 + [i] * 14 + [p]
         lib.layered_minsum_launch.restype = i
         lib.layered_minsum_error_string.argtypes = [i]
         lib.layered_minsum_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _lib_handle = lib
+    return _lib_handle
 
 
 def kernel_unsupported_reason(code: LdpcCode, spec: LayeredSpec):
@@ -120,9 +84,16 @@ def kernel_unsupported_reason(code: LdpcCode, spec: LayeredSpec):
     why = unsupported_reason(code, spec)
     if why is not None:
         return why
+    # the kernel's tables are code.layers: it takes a schedule only where
+    # that gives the same QC block-rows
+    if not code.is_qc or any(
+            lay.qc is None for lay in build_layers(code, spec.schedule)):
+        return (f"{code.name}: the {spec.schedule} schedule gives non-QC "
+                "layers, which this kernel does not walk (the gather kernel, "
+                "kernels/gather.py, does)")
     if max(lay.deg for lay in code.layers) > _MAX_DEG:
         return f"{code.name}: check degree above {_MAX_DEG}"
-    if _smem_bytes(code) > _SMEM_MAX:
+    if _smem_bytes(code) > _lib.SMEM_MAX:
         return (f"{code.name}: a 32-codeword APP tile ({_smem_bytes(code)} B) "
                 "does not fit shared memory (ROADMAP queue 2 item 2)")
     return None
@@ -140,7 +111,7 @@ def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
     with no host synchronisation; ``iters_used`` is a 0-d int32 tensor on
     the card.  On a CPU tensor it runs the plain version.
     """
-    if spec.algo not in _ALGO:
+    if spec.algo not in _lib.ALGO:
         raise ValueError(f"unknown algo {spec.algo!r}")
     why = kernel_unsupported_reason(code, spec)
     if why is not None:
@@ -150,17 +121,9 @@ def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
     plain = make_layered_decoder(code, spec, "cpu")
 
     def decode(llr: torch.Tensor):
-        if not isinstance(llr, torch.Tensor) or llr.dtype != torch.int8:
-            raise TypeError("llr must be an int8 torch tensor")
-        if llr.dim() != 2 or llr.shape[1] != code.N or llr.shape[0] == 0:
-            raise ValueError(
-                f"llr must be [B > 0, {code.N}], got {tuple(llr.shape)}")
+        _lib.check_llr(llr, code.N)
         if llr.device.type == "cpu":
             return plain(llr)
-        if llr.device.type != "cuda":
-            raise ValueError(f"no kernel for device {llr.device}")
-        if not llr.is_contiguous():
-            raise ValueError("llr must be contiguous")
         lib = _library()
         dev = llr.device
         if dev not in tables:
@@ -177,7 +140,7 @@ def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
                 iters.data_ptr(), t["row_ptr"].data_ptr(),
                 t["cols"].data_ptr(), t["shifts"].data_ptr(),
                 len(code.layers), int(t["cols"].numel()), code.N, code.Z, B,
-                _ALGO[spec.algo], int(spec.minclamp == "pre"), spec.iters,
+                _lib.ALGO[spec.algo], int(spec.minclamp == "pre"), spec.iters,
                 int(spec.early_term), spec.offset, spec.nms_f, spec.nms_f2,
                 spec.sat_var, spec.sat_msg, stream,
             )

@@ -1,19 +1,21 @@
-"""Batched layered min-sum decoding in plain PyTorch (QC codes).
+"""Batched layered min-sum decoding in plain PyTorch.
 
 The port's counterpart of ``ldpcgputegra_tpu/ops/layered.py``, and the
-plain version of the CUDA kernel in ``kernels/layered.py``: the CPU tests
-run it, and ``chip_smoke.py`` holds the kernel against it on the card.
+plain version of the CUDA kernels in ``kernels/layered.py`` (QC codes) and
+``kernels/gather.py`` (any layers): the CPU tests run it, and
+``chip_smoke.py`` holds the kernels against it on the card.
 
 * The APP array is node-major ``[N, B]`` int8; codewords ride the last
   axis.
-* Each QC block-row is one step over all of its Z checks at once.  Checks
-  of a block-row touch pairwise-disjoint VNs, so that is bit-identical to
-  the reference's sequential check loop.
-* Edge j of check z reads VN ``cols[j]*Z + (shifts[j] + z) % Z``.  The
-  JAX path writes that as ``_roll(x, s) = concat(x[s:], x[:s])``; here it
-  is an explicit index tensor (``torch.roll`` has the opposite sign), and
-  the writeback is an index assignment through the same tensor.  The APP
-  array is updated in place, one block-row at a time.
+* Each layer of ``build_layers(code, spec.schedule)`` is one step over all
+  of its checks at once.  Checks of a layer touch pairwise-disjoint VNs,
+  so that is bit-identical to the reference's sequential check loop.
+* A layer's ``[deg, G]`` index tensor, ``layer.idx.T``, holds the VN of
+  edge j of check g.  For a QC block-row that is ``cols[j]*Z +
+  (shifts[j] + z) % Z`` (the JAX path's ``_roll``); for any other layer
+  it is the JAX path's static gather (``_layer_step_gather``).  The
+  writeback is an index assignment through the same tensor, and the APP
+  array is updated in place, one layer at a time.
 * Early termination freezes each converged codeword: its APP and messages
   stop changing, so its output is its hard decision at the end of the
   first iteration whose on-the-fly parity is all zero.  The loop stops
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from ..codes.code import LdpcCode
+from ..codes.dvbs2 import is_staircase
 from ..codes.schedule import build_layers
 
 __all__ = ["LayeredSpec", "make_layered_decoder", "SAT_VAR", "SAT_MSG",
@@ -123,16 +126,16 @@ def _cn_update(c: torch.Tensor, spec: LayeredSpec):
     return m, parity
 
 
-def _layer_step_qc(V, msg, idx, spec: LayeredSpec, active=None):
-    """One QC block-row, in place on V [N, B] int8.
+def _layer_step(V, msg, idx, spec: LayeredSpec, active=None):
+    """One layer, in place on V [N, B] int8.
 
-    ``idx`` [deg, Z] holds the VN of edge j of check z; ``msg`` is the
-    layer's [deg, Z, B] int8 messages.  ``active`` ([B] bool, early
+    ``idx`` [deg, G] holds the VN of edge j of check g; ``msg`` is the
+    layer's [deg, G, B] int8 messages.  ``active`` ([B] bool, early
     termination) keeps converged codewords unchanged.  Returns the new
-    messages and the [Z, B] parity.
+    messages and the [G, B] parity.
     """
     sv = spec.sat_var
-    rolled = V[idx]  # [deg, Z, B]
+    rolled = V[idx]  # [deg, G, B]
     c = (rolled.to(_CT) - msg.to(_CT)).clamp(-sv, sv)
     new_msgs, parity = _cn_update(c, spec)
     v_new = (c + new_msgs).clamp(-sv, sv).to(_ST)
@@ -151,13 +154,16 @@ def unsupported_reason(code: LdpcCode, spec: LayeredSpec):
         return "the flooding schedule is not ported yet (ROADMAP queue 1 item 12)"
     if spec.schedule not in ("auto", "reference", "colored"):
         return f"unknown schedule {spec.schedule!r}"
-    layers = build_layers(code, spec.schedule)
-    if code.Z is None or any(lay.qc is None for lay in layers):
-        return (f"{code.name}: non-QC layers (gather path) are not ported yet "
-                "(ROADMAP queue 1 item 10)")
+    if code.Z is None and code.col_perm is None and is_staircase(code):
+        return (f"{code.name}: staircase (DVB-S2-family) codes decode through "
+                "their Z=360 QC view, which is not ported yet (ROADMAP queue 1 "
+                "item 11)")
+    # QC descriptors come only from the reference layers; colored layers
+    # carry none
     if code.col_perm is not None or any(
-        lay.qc.mask_edge is not None or lay.qc.commit_rows is not None
-        for lay in layers
+        lay.qc is not None
+        and (lay.qc.mask_edge is not None or lay.qc.commit_rows is not None)
+        for lay in code.layers
     ):
         return (f"{code.name}: col_perm views, deficient circulants and "
                 "sub-pass layers are not ported yet (ROADMAP queue 2 item 1 "
@@ -177,21 +183,13 @@ def make_layered_decoder(
         raise NotImplementedError(why)
     device = torch.device(device)
     layers = tuple(build_layers(code, spec.schedule))
-    Z = code.Z
-    z = np.arange(Z, dtype=np.int64)
-    idxs = [
-        torch.as_tensor(
-            lay.qc.cols.astype(np.int64)[:, None] * Z
-            + (lay.qc.shifts.astype(np.int64)[:, None] + z[None, :]) % Z,
-            device=device,
-        )
-        for lay in layers
-    ]
+    idxs = [torch.as_tensor(lay.idx.T.astype(np.int64), device=device)
+            for lay in layers]
 
     def iteration(V, msgs, active=None):
         unsat = None
         for li, idx in enumerate(idxs):
-            msgs[li], parity = _layer_step_qc(V, msgs[li], idx, spec, active)
+            msgs[li], parity = _layer_step(V, msgs[li], idx, spec, active)
             lay_unsat = (parity != 0).any(0)  # [B]
             unsat = lay_unsat if unsat is None else (unsat | lay_unsat)
         return unsat
@@ -207,8 +205,8 @@ def make_layered_decoder(
             raise ValueError(f"llr is on {llr.device}, decoder on {device}")
         V = llr.t().contiguous()  # interleave: frame-major -> node-major
         B = V.shape[1]
-        msgs = [torch.zeros((lay.deg, Z, B), dtype=_ST, device=V.device)
-                for lay in layers]
+        msgs = [torch.zeros((lay.deg, lay.n_checks, B), dtype=_ST,
+                            device=V.device) for lay in layers]
         if not spec.early_term:
             for _ in range(spec.iters):
                 iteration(V, msgs)

@@ -45,9 +45,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "reference", "colored", "flooding"],
                    help="layered check order (flooding: not ported yet)")
     g.add_argument("--backend", default="auto",
-                   choices=["auto", "cuda", "torch", "native"],
-                   help="cuda = hand-written kernel, torch = plain PyTorch "
-                        "(native: not ported yet)")
+                   choices=["auto", "cuda", "cuda-gather", "torch", "native"],
+                   help="cuda = hand-written QC kernel, cuda-gather = "
+                        "hand-written kernel for any layers (non-QC codes), "
+                        "torch = plain PyTorch (native: not ported yet)")
     g.add_argument("--device", default=None,
                    help="torch device (default: cuda when available, else cpu)")
     p.add_argument("--channel-rng", dest="channel_rng", default="threefry",
@@ -165,14 +166,31 @@ def _print_info(cfg: SweepConfig) -> None:
 
     code = load_code(cfg.code)
     device = torch.device(cfg.device) if cfg.device else default_device()
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
+    if device.type != "cuda":
+        name = "cpu"
+    elif torch.cuda.is_available():
+        name = torch.cuda.get_device_name(device)
+    else:
+        name = "not present here; backend resolved as for a card"
     print(f"(II) device       : {device} ({name})")
     print(f"(II) code         : N={code.N} K={code.K} M={code.M} "
           f"checks={code.n_checks} Z={code.Z} rate={code.rate:.3f}")
     print(f"(II) layers       : {len(code.layers)} "
           f"(qc {sum(1 for l in code.layers if l.qc is not None)})")
-    print(f"(II) backend      : {backend_for(code, _spec(cfg), device, cfg.backend)}")
+    try:
+        backend = backend_for(code, _spec(cfg), device, cfg.backend)
+    except NotImplementedError as e:
+        print(f"(II) backend      : none ({e})")
+        return
+    print(f"(II) backend      : {backend}")
+    if backend == "cuda-gather":
+        from ..codes.schedule import build_layers
+        from ..kernels.gather import pick_tile, smem_bytes
+
+        tile = pick_tile(code, _spec(cfg))
+        print(f"(II) gather       : {len(build_layers(code, cfg.schedule))} "
+              f"{cfg.schedule} layers, {tile} codewords per CTA, "
+              f"{smem_bytes(code.N, tile)} B shared memory")
 
 
 def _print_histo(cfg: SweepConfig) -> None:

@@ -1,5 +1,6 @@
-"""The CUDA layered min-sum kernel against its plain PyTorch version, on the
-card.  Every test here needs an NVIDIA GPU and skips without one.
+"""The CUDA kernels (the QC layered min-sum kernel and the gather kernel for
+any layers) against their plain PyTorch version, on the card.  Every test
+here needs an NVIDIA GPU and skips without one.
 
 On a machine with a card (and without jax, which ``tests/conftest.py``
 imports), run:
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from ldpcgputegra_tpu_torch.codes.registry import load_code
+from ldpcgputegra_tpu_torch.kernels import gather as G
 from ldpcgputegra_tpu_torch.kernels import layered as K
 from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec, make_layered_decoder
 
@@ -77,3 +79,47 @@ def test_kernel_counts_launches_and_checks_inputs(dev):
     with pytest.raises(ValueError):
         dec(llr[:, :-1].contiguous())
     assert K.launches["layered_minsum"] == before + 1
+
+
+@pytest.mark.parametrize("name", ["200x100", "1024x518", "2048x384",
+                                  "4000x2000"])
+@pytest.mark.parametrize("algo,minclamp", [("OMS", "pre"), ("MS", "post"),
+                                           ("NMS", "pre"), ("2NMS", "post")])
+@pytest.mark.parametrize("et", [False, True])
+def test_gather_kernel_matches_plain(dev, name, algo, minclamp, et):
+    code = load_code(name)
+    spec = LayeredSpec(algo=algo, iters=6, minclamp=minclamp, early_term=et)
+    llr = torch.from_numpy(_llrs(code.N, 257, seed=5, std=0.6)).to(dev)
+    kb, ki = G.make_gather_decoder(code, spec)(llr)
+    pb, pi = make_layered_decoder(code, spec, dev)(llr)
+    assert torch.equal(kb, pb)
+    assert int(ki) == int(pi)
+
+
+@pytest.mark.parametrize("tile,name", [(32, "200x100"), (16, "1024x518"),
+                                       (8, "4000x2000")])
+def test_gather_kernel_every_tile(dev, tile, name):
+    """Each tile width the kernel ships, through a code that picks it."""
+    code = load_code(name)
+    spec = LayeredSpec(iters=5, early_term=True)
+    assert G.pick_tile(code, spec) == tile
+    llr = torch.from_numpy(_llrs(code.N, 100, seed=6, std=0.6)).to(dev)
+    kb, ki = G.make_gather_decoder(code, spec)(llr)
+    pb, pi = make_layered_decoder(code, spec, dev)(llr)
+    assert torch.equal(kb, pb) and int(ki) == int(pi)
+
+
+def test_gather_kernel_counts_launches_and_checks_inputs(dev):
+    code = load_code("816x408")
+    dec = G.make_gather_decoder(code, LayeredSpec(iters=3))
+    llr = torch.from_numpy(_llrs(code.N, 64, seed=1)).to(dev)
+    before = G.launches["gather_minsum"]
+    dec(llr)
+    assert G.launches["gather_minsum"] == before + 1
+    with pytest.raises(TypeError):
+        dec(llr.to(torch.int16))
+    with pytest.raises(ValueError):
+        dec(llr.t().contiguous().t())  # not contiguous
+    with pytest.raises(ValueError):
+        dec(llr[:, :-1].contiguous())
+    assert G.launches["gather_minsum"] == before + 1

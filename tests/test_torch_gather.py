@@ -1,0 +1,256 @@
+"""The non-QC (gather) decode path of the port on the CPU.
+
+The plain PyTorch decoder against the JAX package's XLA decoder on the
+registry's non-QC codes: bit-exact in bits and ``iters_used``, from the
+same seeded numpy int8 LLRs.  Also pinned here: the ``auto`` routing of
+every registry code on a CUDA device (decided without a card), staircase
+detection against the JAX package, the gather kernel's fit function, its
+tables, and its wrapper on CPU tensors.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ldpcgputegra_tpu.codes.dvbs2 import is_staircase as j_is_staircase
+from ldpcgputegra_tpu.codes.registry import load_code as j_load_code
+from ldpcgputegra_tpu.codes.registry import (
+    make_random_regular_code as j_make_random_regular_code,
+)
+from ldpcgputegra_tpu.ops.layered import LayeredSpec as JSpec
+from ldpcgputegra_tpu.ops.layered import make_layered_decoder as j_decoder
+from ldpcgputegra_tpu_torch.codes.convert import gather_tables
+from ldpcgputegra_tpu_torch.codes.dvbs2 import is_staircase
+from ldpcgputegra_tpu_torch.codes.registry import (
+    list_codes,
+    load_code,
+    make_random_regular_code,
+)
+from ldpcgputegra_tpu_torch.codes.schedule import build_layers
+from ldpcgputegra_tpu_torch.decoder import backend_for, make_decoder
+from ldpcgputegra_tpu_torch.kernels import gather as G
+from ldpcgputegra_tpu_torch.kernels._lib import SMEM_MAX
+from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec, make_layered_decoder
+from ldpcgputegra_tpu_torch.sim.sweep import SweepConfig, run_sweep
+
+CUDA = torch.device("cuda")
+
+QC = ["1248x624", "155x93", "1944x972", "2304x1152", "576x288",
+      "802_11e_1920x960", "802_11e_2304x1152", "802_11e_576x288",
+      "802_11n-1944x972"]
+# non-QC codes and the tile (codewords per CTA) the gather kernel takes
+NON_QC_TILE = {
+    "1024x518": 16, "1200x600": 16, "200x100": 32, "2048x384": 8,
+    "2640x1320": 8, "4000x2000": 8, "4896x2448": 8, "816x408": 16,
+    "8000x4000": 8, "9972x4986": 8, "20000x10000": 8,
+}
+STAIRCASE = ["16200x10800", "16200x7560", "64800x21600", "64800x32400",
+             "64800x32400-dvbs2", "64800x6480-dvbs2", "64800x7200-dvbs2"]
+
+
+def _llrs(n, b, seed):
+    """int8 all-zero-codeword LLRs, noise spread over the batch so frames
+    converge at different iterations."""
+    rng = np.random.default_rng(seed)
+    std = np.linspace(0.3, 0.9, b)[:, None]
+    return np.clip(8.0 * (-1.0 + std * rng.standard_normal((b, n))),
+                   -31, 31).astype(np.int8)
+
+
+def _check(name, kw, b=16, seed=0):
+    llr = _llrs(load_code(name).N, b, seed)
+    bits, iters = make_layered_decoder(load_code(name), LayeredSpec(**kw))(
+        torch.from_numpy(llr))
+    rb, ri = j_decoder(j_load_code(name), JSpec(**kw))(llr)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(rb))
+    assert int(iters) == int(ri)
+
+
+@pytest.mark.parametrize("et", [False, True])
+@pytest.mark.parametrize("name", ["4000x2000", "8000x4000", "9972x4986",
+                                  "20000x10000", "1024x518"])
+def test_plain_matches_jax_non_qc(name, et):
+    """The registry's non-QC codes in the auto (colored) schedule, B=16,
+    3 iterations."""
+    _check(name, dict(algo="OMS", iters=3, early_term=et))
+
+
+@pytest.mark.parametrize("schedule", ["auto", "colored"])
+def test_plain_matches_jax_schedules_irregular(schedule):
+    """1200x600 (check degrees 8 and 9; 39 colored layers).  Its reference
+    schedule has 547 layers, too many for a quick XLA compile: the
+    reference schedule is checked on 200x100 (``test_torch_layered.py``)."""
+    _check("1200x600", dict(algo="NMS", minclamp="post", iters=3,
+                            early_term=True, schedule=schedule), seed=4)
+
+
+def test_random_regular_code_matches_jax():
+    a = make_random_regular_code(256, 128, 6, seed=9)
+    b = j_make_random_regular_code(256, 128, 6, seed=9)
+    assert (a.name, a.N, a.K, a.Z) == (b.name, b.N, b.K, b.Z)
+    np.testing.assert_array_equal(a.edges, b.edges)
+
+
+@pytest.mark.parametrize("name", sorted(NON_QC_TILE) + STAIRCASE + QC[:2])
+def test_is_staircase_matches_jax(name):
+    assert is_staircase(load_code(name)) == j_is_staircase(j_load_code(name))
+    assert is_staircase(load_code(name)) == (name in STAIRCASE)
+
+
+def test_auto_routing_of_every_registry_code():
+    """On a CUDA device: QC codes take the QC kernel, non-QC codes the
+    gather kernel, staircase codes raise; on the CPU ``auto`` is torch."""
+    assert sorted(list_codes()) == sorted(QC + list(NON_QC_TILE) + STAIRCASE)
+    spec = LayeredSpec()
+    for name in QC:
+        assert backend_for(load_code(name), spec, CUDA) == "cuda"
+    for name in NON_QC_TILE:
+        assert backend_for(load_code(name), spec, CUDA) == "cuda-gather"
+        assert backend_for(load_code(name), spec, "cpu") == "torch"
+    for name in STAIRCASE:
+        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+            backend_for(load_code(name), spec, CUDA)
+
+
+def test_routing_of_schedules_on_qc_codes():
+    """A QC code in the colored schedule has non-QC layers: the gather
+    kernel takes it, the QC kernel never does."""
+    code = load_code("576x288")
+    assert backend_for(code, LayeredSpec(schedule="reference"), CUDA) == "cuda"
+    assert backend_for(code, LayeredSpec(schedule="colored"), CUDA) == \
+        "cuda-gather"
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        backend_for(code, LayeredSpec(schedule="flooding"), CUDA)
+
+
+@pytest.mark.parametrize("name", sorted(NON_QC_TILE))
+def test_fit_picks_the_tile(name):
+    """The narrowest fitting tile whose lanes (512 / tile) are at most
+    twice the largest layer's checks, charged its own shared-memory
+    footprint."""
+    code = load_code(name)
+    spec = LayeredSpec()
+    tile = G.pick_tile(code, spec)
+    assert tile == NON_QC_TILE[name]
+    assert G.kernel_unsupported_reason(code, spec) is None
+    assert G.smem_bytes(code.N, tile) == ((code.N * tile + 15) & ~15) + 4 * tile
+    assert G.smem_bytes(code.N, tile) <= SMEM_MAX
+    max_checks = max(lay.n_checks for lay in build_layers(code, "auto"))
+    assert G.NTHREADS // tile <= 2 * max_checks or tile == G.TILES[-1]
+    for t in G.TILES:
+        if t < tile:
+            fits = G.smem_bytes(code.N, t) <= SMEM_MAX
+            assert G.NTHREADS // t > 2 * max_checks or not fits
+
+
+def test_registry_codes_reach_every_tile():
+    """Each tile the kernel ships is the pick of some registry code, so the
+    card tests, which run 200x100, 1024x518 and 4000x2000, launch all."""
+    assert set(NON_QC_TILE.values()) == set(G.TILES)
+    assert {NON_QC_TILE[n] for n in ("200x100", "1024x518", "4000x2000")} == \
+        set(G.TILES)
+
+
+def test_colored_layers_are_computed_once_per_code():
+    """Routing, the fit, the tables and the plain decoder share one
+    coloring of a code; a new code object is colored anew."""
+    code = make_random_regular_code(256, 128, 6, seed=9)
+    layers = build_layers(code, "colored")
+    assert build_layers(code, "colored") is layers
+    G.make_gather_decoder(code, LayeredSpec(schedule="colored"))
+    assert build_layers(code, "colored") is layers
+    other = make_random_regular_code(256, 128, 6, seed=9)
+    again = build_layers(other, "colored")
+    assert again is not layers and len(again) == len(layers)
+    for a, b in zip(again, layers):
+        np.testing.assert_array_equal(a.idx, b.idx)
+
+
+def test_fit_refuses_codes_beyond_an_8_codeword_tile():
+    code = make_random_regular_code(30000, 15000, 6, seed=1)
+    assert G.pick_tile(code, LayeredSpec()) == 0
+    assert "does not fit shared memory" in G.kernel_unsupported_reason(
+        code, LayeredSpec())
+
+
+@pytest.mark.parametrize("name,schedule", [("4000x2000", "auto"),
+                                           ("1200x600", "auto"),
+                                           ("576x288", "colored")])
+def test_gather_tables_describe_the_schedule(name, schedule):
+    code = load_code(name)
+    spec = LayeredSpec(schedule=schedule)
+    t = {k: v.numpy() for k, v in gather_tables(code, spec, "cpu").items()}
+    layers = build_layers(code, schedule)
+    assert t["vn"].dtype == np.int16 and t["row_ptr"].dtype == np.int32
+    assert len(t["deg"]) == len(layers) and t["row_ptr"][-1] == code.M
+    vn = t["vn"].view(np.uint16)
+    for l, lay in enumerate(layers):
+        G_, d = lay.idx.shape
+        assert (t["n_checks"][l], t["deg"][l]) == (G_, d)
+        e0 = t["row_ptr"][l]
+        assert t["row_ptr"][l + 1] - e0 == G_ * d
+        # edge j of check g is slot e0 + j*G + g
+        np.testing.assert_array_equal(
+            vn[e0:e0 + G_ * d].reshape(d, G_), lay.idx.T)
+
+
+@pytest.mark.parametrize("name", ["200x100", "2048x384", "1024x518"])
+def test_gather_wrapper_runs_plain_on_cpu_tensors(name):
+    code = load_code(name)
+    spec = LayeredSpec(iters=3, early_term=True)
+    llr = torch.from_numpy(_llrs(code.N, 13, 2))
+    kb, ki = G.make_gather_decoder(code, spec)(llr)
+    pb, pi = make_layered_decoder(code, spec)(llr)
+    assert torch.equal(kb, pb) and int(ki) == int(pi)
+
+
+def test_gather_wrapper_checks():
+    code = load_code("200x100")
+    dec = G.make_gather_decoder(code, LayeredSpec(iters=2))
+    with pytest.raises(TypeError):
+        dec(torch.zeros((2, code.N), dtype=torch.int16))
+    with pytest.raises(ValueError):
+        dec(torch.zeros((2, code.N + 1), dtype=torch.int8))
+    with pytest.raises(ValueError):
+        dec(torch.zeros((0, code.N), dtype=torch.int8))
+    with pytest.raises(ValueError, match="no kernel"):
+        dec(torch.zeros((2, code.N), dtype=torch.int8, device="meta"))
+    with pytest.raises(ValueError, match="unknown algo"):
+        G.make_gather_decoder(code, LayeredSpec(algo="BP"))
+    with pytest.raises(NotImplementedError, match="does not fit shared memory"):
+        G.make_gather_decoder(make_random_regular_code(30000, 15000, 6, seed=1),
+                              LayeredSpec())
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        G.make_gather_decoder(load_code("16200x7560"), LayeredSpec())
+
+
+def test_make_decoder_cuda_gather_backend_on_cpu_tensors():
+    code = load_code("816x408")
+    spec = LayeredSpec(iters=4, early_term=True)
+    dec = make_decoder(code, spec, backend="cuda-gather", device="cpu")
+    llr = torch.from_numpy(_llrs(code.N, 9, 3))
+    bits, iters = dec(llr)
+    pb, pi = make_layered_decoder(code, spec)(llr)
+    assert torch.equal(bits, pb) and int(iters) == int(pi)
+
+
+def test_sweep_decodes_4000x2000_on_cpu():
+    res = run_sweep(SweepConfig(
+        code="4000x2000", iters=5, batch=32, snr_min=2.0, snr_max=2.0,
+        max_fe=1000, max_frames=64, device="cpu", seed=3), progress=False)
+    (p,) = res.points
+    assert p.frames >= 64 and p.frames % 32 == 0  # whole batches in flight
+    assert p.ber < 0.02  # the raw channel BER at 2 dB is about 0.06
+
+
+def test_cli_info_resolves_the_gather_backend(capsys):
+    from ldpcgputegra_tpu_torch.sim import cli
+
+    cli.main(["--code", "4000x2000", "--info", "--device", "cuda"])
+    out = capsys.readouterr().out
+    assert "backend      : cuda-gather" in out
+    assert "11 auto layers, 8 codewords per CTA, 32032 B" in out
+    cli.main(["--code", "16200x7560", "--info", "--device", "cuda"])
+    assert "queue 1 item 11" in capsys.readouterr().out
+    cli.main(["--code", "4000x2000", "--info", "--device", "cpu"])
+    assert "backend      : torch" in capsys.readouterr().out

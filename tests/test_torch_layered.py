@@ -146,11 +146,20 @@ def test_layered_spec_validation_matches_reference():
     assert LayeredSpec() == LayeredSpec(**JSpec().__dict__)
 
 
+@pytest.mark.parametrize("schedule", ["auto", "reference", "colored"])
+def test_plain_decodes_non_qc_200x100(schedule):
+    """The non-QC 200x100 decodes bit-exact against JAX in every schedule."""
+    _check("200x100", dict(iters=4, early_term=True, schedule=schedule),
+           _batches(200, b=32, seed=5))
+
+
 def test_unported_codes_and_schedules_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        make_layered_decoder(load_code("200x100"), LayeredSpec())
     with pytest.raises(NotImplementedError, match="queue 1 item 12"):
         make_layered_decoder(load_code("576x288"),
                              LayeredSpec(schedule="flooding"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    # the QC kernel walks code.layers: a colored (non-QC) order must never
+    # reach it
+    with pytest.raises(NotImplementedError, match="non-QC layers"):
         make_cuda_decoder(load_code("576x288"), LayeredSpec(schedule="colored"))
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        make_layered_decoder(load_code("16200x7560"), LayeredSpec())

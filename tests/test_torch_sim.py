@@ -161,10 +161,15 @@ def test_backend_routing():
     qc, nonqc = load_code("1944x972"), load_code("200x100")
     assert backend_for(qc, spec, "cpu") == "torch"
     assert backend_for(qc, spec, torch.device("cuda")) == "cuda"
+    # non-QC layers (a non-QC code, or a QC code in the colored schedule)
+    # take the gather kernel; what neither kernel takes raises
+    assert backend_for(nonqc, spec, torch.device("cuda")) == "cuda-gather"
+    assert backend_for(qc, LayeredSpec(schedule="colored"),
+                       torch.device("cuda")) == "cuda-gather"
     with pytest.raises(NotImplementedError):
-        backend_for(nonqc, spec, torch.device("cuda"))
+        backend_for(load_code("16200x7560"), spec, torch.device("cuda"))
     with pytest.raises(NotImplementedError):
-        backend_for(qc, LayeredSpec(schedule="colored"), torch.device("cuda"))
+        backend_for(qc, LayeredSpec(schedule="flooding"), torch.device("cuda"))
     with pytest.raises(NotImplementedError):
         backend_for(qc, spec, "cpu", backend="native")
     with pytest.raises(ValueError):
