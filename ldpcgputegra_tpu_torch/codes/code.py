@@ -33,8 +33,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-__all__ = ["DegreeClass", "QCRow", "Layer", "LdpcCode", "compute_layers",
-           "detect_Z"]
+__all__ = ["DegreeClass", "QCRow", "Layer", "LdpcCode", "committed_edges",
+           "compute_layers", "detect_Z"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,9 +57,8 @@ class QCRow:
     ``mask_edge``/``mask_rows`` describe a *deficient circulant*: at edge
     position ``mask_edge``, the checks listed in ``mask_rows`` have no such
     edge in the true H (e.g. the DVB-S2 staircase wrap at check 0).
-    Decoders neutralize those (check, edge) contributions: |v| pinned to
-    saturation with negative sign (never the min, parity-neutral) and no
-    APP/message writeback — exactly equivalent to the edge being absent.
+    Decoders neutralize those (check, edge) contributions: the contribution
+    pinned to -sat_var (parity-neutral) and no APP/message writeback.
 
     ``commit_rows``, when set, marks this layer as one *sub-pass* of a
     block-row whose checks are NOT mutually conflict-free (a repeated
@@ -99,6 +98,28 @@ class Layer:
     @property
     def deg(self) -> int:
         return self.idx.shape[1]
+
+
+def committed_edges(layer: Layer) -> tuple[np.ndarray, Optional[np.ndarray]]:
+    """What a decode step of ``layer`` computes and commits.
+
+    Returns ``(idx, pinned)``: ``idx`` [G, deg] holds the layer's committed
+    checks (a sub-pass layer's ``commit_rows``, else all of them), which
+    touch pairwise-disjoint VNs; ``pinned`` [G, deg] bool marks the
+    deficient-circulant edges (``mask_edge`` at ``mask_rows``), whose
+    contribution is pinned to -sat_var and which write nothing, or is None
+    when the layer has none.
+    """
+    qc = layer.qc
+    rows = np.arange(layer.n_checks)
+    if qc is not None and qc.commit_rows is not None:
+        rows = np.asarray(qc.commit_rows, dtype=np.int64)
+    idx = layer.idx[rows]
+    if qc is None or qc.mask_edge is None:
+        return idx, None
+    pinned = np.zeros(idx.shape, dtype=bool)
+    pinned[np.isin(rows, qc.mask_rows), qc.mask_edge] = True
+    return idx, (pinned if pinned.any() else None)
 
 
 def _runs_conflict_free(idx: np.ndarray) -> bool:
@@ -208,10 +229,9 @@ class LdpcCode:
     # Encoder side (DVB-S2-style QC accumulate tables), optional:
     enc_rows: Optional[tuple[np.ndarray, ...]] = None  # per table line: positions
     enc_q: Optional[int] = None
-    # Set on QC-ified views of another code (ldpcgputegra_tpu/codes/dvbs2.py,
-    # not ported yet; the port's decoders refuse such views): this code's
-    # VN i is the base code's VN col_perm[i].  Decoders permute input LLRs
-    # by col_perm and inverse-permute output bits.
+    # Set on QC-ified views of another code (codes/dvbs2.py::to_qc_form):
+    # this code's VN i is the base code's VN col_perm[i].  Decoders permute
+    # input LLRs by col_perm and inverse-permute output bits.
     col_perm: Optional[np.ndarray] = None
 
     def __post_init__(self):

@@ -6,7 +6,9 @@ hold the port's own ``load_code`` against the reference code object.
 
 ``qc_tables`` turns a code's QC block-rows into the small int32 tables
 the QC kernel walks; ``gather_tables`` turns the layers of any schedule
-into the per-edge tables the gather kernel walks.
+into the per-edge tables the gather kernel walks; ``streamed_tables``
+turns the committed edges of a code's layers (QC views included) into the
+per-edge tables the streamed kernel walks.
 """
 
 from __future__ import annotations
@@ -16,10 +18,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .code import DegreeClass, LdpcCode
+from .code import DegreeClass, LdpcCode, committed_edges
 from .schedule import build_layers
 
-__all__ = ["code_from_numpy", "qc_tables", "gather_tables"]
+__all__ = ["code_from_numpy", "qc_tables", "gather_tables", "streamed_tables",
+           "PINNED"]
+
+PINNED = -1  # streamed_tables' VN id of a deficient-circulant edge
 
 
 def code_from_numpy(
@@ -101,3 +106,40 @@ def gather_tables(code: LdpcCode, spec, device) -> dict[str, torch.Tensor]:
         "vn": torch.as_tensor(vn.astype(np.uint16).view(np.int16),
                               device=device),
     }
+
+
+def streamed_tables(code: LdpcCode, spec, device) -> dict[str, torch.Tensor]:
+    """The committed edges of ``build_layers(code, spec.schedule)``
+    (``codes/code.py::committed_edges``) as int32 device tensors, in
+    schedule order.
+
+    Laid out as ``gather_tables``: layer l has ``n_checks[l]`` committed
+    checks of degree ``deg[l]``, edge j of check g is slot ``row_ptr[l] +
+    j * n_checks[l] + g``, and ``vn[slot]`` is its VN, or ``PINNED`` for a
+    deficient-circulant edge (its contribution is -sat_var and it writes
+    nothing; its message slot is never read or written).  ``perm`` is the
+    view's ``col_perm`` (the kernel loads ``app[n] = llr[col_perm[n]]``
+    and stores ``bits[col_perm[n]] = app[n] > 0``), or empty.
+    """
+    layers = build_layers(code, spec.schedule)
+    n_checks, deg, vns = [], [], []
+    for lay in layers:
+        idx, pinned = committed_edges(lay)
+        vn = idx.T.astype(np.int32)  # [deg, G]
+        if pinned is not None:
+            vn[pinned.T] = PINNED
+        n_checks.append(idx.shape[0])
+        deg.append(idx.shape[1])
+        vns.append(vn.ravel())
+    n_checks = np.asarray(n_checks, dtype=np.int32)
+    deg = np.asarray(deg, dtype=np.int32)
+    row_ptr = np.concatenate([[0], np.cumsum(n_checks * deg)])
+    if row_ptr[-1] >= 2**31:
+        raise ValueError(f"{code.name}: {row_ptr[-1]} edge slots overflow int32")
+    perm = np.zeros(0) if code.col_perm is None else code.col_perm
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
+
+    return {"row_ptr": t(row_ptr), "n_checks": t(n_checks), "deg": t(deg),
+            "vn": t(np.concatenate(vns)), "perm": t(perm)}

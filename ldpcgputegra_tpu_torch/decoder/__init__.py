@@ -4,15 +4,22 @@
 Backends:
 
 * ``cuda`` — the hand-written QC kernel (``kernels/layered.py``): all-QC
-  codes whose block-rows the schedule keeps;
+  codes whose block-rows the schedule keeps and whose 32-codeword APP tile
+  fits shared memory;
 * ``cuda-gather`` — the hand-written gather kernel (``kernels/gather.py``):
   the layers of any schedule, so the non-QC codes (4000x2000 ...);
+* ``cuda-streamed`` — the hand-written kernel with the APP in device
+  memory (``kernels/streamed.py``): QC codes and the QC views of staircase
+  codes beyond shared memory (the DVB-S2 family, synthqc);
 * ``torch`` — the plain PyTorch layered decoder (``ops/layered.py``);
 * ``auto`` — on a CUDA device ``cuda`` where the QC kernel takes the code,
-  else ``cuda-gather``; ``torch`` on the CPU.  A code or spec neither
-  kernel takes raises on a CUDA device: it is never sent to the plain
-  version there.  Staircase (DVB-S2-family) codes raise on every device
-  until their QC view is ported (ROADMAP queue 1 item 11).
+  else ``cuda-gather`` where the gather kernel does, else
+  ``cuda-streamed``; ``torch`` on the CPU.  A code or spec no kernel takes
+  raises on a CUDA device: it is never sent to the plain version there.
+
+Staircase (DVB-S2-family) codes are replaced by their Z=360 QC view
+(``effective_code``), as in the JAX package; the view permutes columns
+internally, so callers see the original column order.
 
 All backends return ``decode(llr[B, N] int8) -> (bits[B, N] uint8,
 iters_used)`` on tensors of the decoder's device.
@@ -20,12 +27,17 @@ iters_used)`` on tensors of the decoder's device.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..codes.code import LdpcCode
 from ..ops.layered import LayeredSpec, make_layered_decoder
 
-__all__ = ["make_decoder", "LayeredSpec", "backend_for", "default_device"]
+__all__ = ["make_decoder", "LayeredSpec", "backend_for", "default_device",
+           "effective_code"]
+
+_qc_view_cache: dict[str, Optional[LdpcCode]] = {}
 
 
 def default_device() -> torch.device:
@@ -33,10 +45,28 @@ def default_device() -> torch.device:
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
+def effective_code(code: LdpcCode) -> LdpcCode:
+    """The code actually decoded: the QC view for staircase codes."""
+    if code.Z is not None or code.col_perm is not None:
+        return code
+    if code.name not in _qc_view_cache:
+        from ..codes.dvbs2 import is_staircase, to_qc_form
+
+        view = None
+        if is_staircase(code):
+            try:
+                view = to_qc_form(code)
+            except ValueError:
+                view = None
+        _qc_view_cache[code.name] = view
+    return _qc_view_cache[code.name] or code
+
+
 def backend_for(code: LdpcCode, spec: LayeredSpec, device=None,
                 backend: str = "auto") -> str:
-    """The backend ``make_decoder`` builds for this code, spec and device."""
-    from ..kernels import gather, layered
+    """The backend ``make_decoder`` builds for this code (its QC view for
+    a staircase code), spec and device."""
+    from ..kernels import gather, layered, streamed
 
     device = torch.device(device) if device is not None else default_device()
     if backend == "native":
@@ -45,13 +75,16 @@ def backend_for(code: LdpcCode, spec: LayeredSpec, device=None,
     if backend == "auto":
         if device.type != "cuda":
             return "torch"
+        code = effective_code(code)
         if layered.kernel_unsupported_reason(code, spec) is None:
             return "cuda"
-        why = gather.kernel_unsupported_reason(code, spec)
+        if gather.kernel_unsupported_reason(code, spec) is None:
+            return "cuda-gather"
+        why = streamed.kernel_unsupported_reason(code, spec)
         if why is not None:
             raise NotImplementedError(f"no CUDA kernel for this decode: {why}")
-        return "cuda-gather"
-    if backend in ("cuda", "cuda-gather", "torch"):
+        return "cuda-streamed"
+    if backend in ("cuda", "cuda-gather", "cuda-streamed", "torch"):
         return backend
     raise ValueError(f"unknown backend {backend!r}")
 
@@ -62,10 +95,11 @@ def make_decoder(
     backend: str = "auto",
     device=None,
 ):
-    """Build the decoder for ``code`` on ``device`` (default:
-    ``default_device()``)."""
+    """Build the decoder for ``code`` (its QC view for a staircase code) on
+    ``device`` (default: ``default_device()``)."""
     device = torch.device(device) if device is not None else default_device()
     resolved = backend_for(code, spec, device, backend)
+    code = effective_code(code)
     if resolved == "cuda":
         from ..kernels import make_cuda_decoder
 
@@ -74,4 +108,8 @@ def make_decoder(
         from ..kernels import make_gather_decoder
 
         return make_gather_decoder(code, spec)
+    if resolved == "cuda-streamed":
+        from ..kernels import make_streamed_decoder
+
+        return make_streamed_decoder(code, spec)
     return make_layered_decoder(code, spec, device)

@@ -1,7 +1,11 @@
 """Hand-written CUDA kernels for Hopper — the hot decode path: the QC
-kernel (``layered``) and the gather kernel for any layers (``gather``)."""
+kernel (``layered``), the gather kernel for any layers (``gather``) and the
+kernel with the APP in device memory for QC codes beyond shared memory
+(``streamed``)."""
 
 from .gather import make_gather_decoder
 from .layered import cuda_supported, make_cuda_decoder
+from .streamed import make_streamed_decoder
 
-__all__ = ["make_cuda_decoder", "cuda_supported", "make_gather_decoder"]
+__all__ = ["make_cuda_decoder", "cuda_supported", "make_gather_decoder",
+           "make_streamed_decoder"]

@@ -34,11 +34,17 @@ import torch
 from ..codes.code import LdpcCode
 from ..codes.convert import gather_tables
 from ..codes.schedule import build_layers
-from ..ops.layered import LayeredSpec, make_layered_decoder, unsupported_reason
+from ..ops.layered import (
+    LayeredSpec,
+    is_qc_view,
+    make_layered_decoder,
+    unsupported_reason,
+)
 from . import _lib
 
 __all__ = ["make_gather_decoder", "kernel_unsupported_reason", "pick_tile",
-           "smem_bytes", "build", "launches", "SOURCE", "REPLACES"]
+           "smem_bytes", "build", "launches", "SOURCE", "REPLACES",
+           "OPS_PER_EDGE"]
 
 SOURCE = os.path.join(_lib.CSRC, "gather_minsum.cu")
 BUILD_DIR = _lib.BUILD_DIR
@@ -50,6 +56,14 @@ REPLACES = ("ldpcgputegra_tpu/kernels/pallas_gather.py:1215 (K3 _build_kernel), 
 NTHREADS = 512  # threads per CTA
 TILES = (8, 16, 32)  # codewords per CTA
 DMAXES = (8, 16, 32)  # unrolled contribution array lengths
+
+# Integer operations per edge update, counted from the source: the first
+# pass (slot index 2, VN id load 1, message and APP addresses and loads 4,
+# subtract and clamp 3, |clamp| 3, two-min 3, parity 2: 18) and the
+# writeback (slot 2, VN id load 1, the message 9, its store 2, the APP sum,
+# clamp and store 4: 18); the bound in chip_smoke.py divides by the int32
+# rate.
+OPS_PER_EDGE = 36
 
 # Kernel launches in this process: the decoder adds one where it launches
 # the kernel, and nowhere else.
@@ -112,6 +126,12 @@ def kernel_unsupported_reason(code: LdpcCode, spec: LayeredSpec):
     why = unsupported_reason(code, spec)
     if why is not None:
         return why
+    if is_qc_view(code):
+        # its tables are the layers' full idx: a sub-pass layer's
+        # conflicting rows and the deficient edge would decode wrongly
+        return (f"{code.name}: a QC view (col_perm, deficient circulants, "
+                "sub-pass layers), which this kernel does not take (the "
+                "streamed kernel, kernels/streamed.py, does)")
     if _dmax(code) == 0:
         return f"{code.name}: check degree above {DMAXES[-1]}"
     if pick_tile(code, spec) == 0:

@@ -33,11 +33,16 @@ import torch
 from ..codes.code import LdpcCode
 from ..codes.convert import qc_tables
 from ..codes.schedule import build_layers
-from ..ops.layered import LayeredSpec, make_layered_decoder, unsupported_reason
+from ..ops.layered import (
+    LayeredSpec,
+    is_qc_view,
+    make_layered_decoder,
+    unsupported_reason,
+)
 from . import _lib
 
 __all__ = ["make_cuda_decoder", "cuda_supported", "build", "launches",
-           "SOURCE", "REPLACES"]
+           "SOURCE", "REPLACES", "OPS_PER_EDGE"]
 
 SOURCE = os.path.join(_lib.CSRC, "layered_minsum.cu")
 BUILD_DIR = _lib.BUILD_DIR
@@ -46,6 +51,13 @@ REPLACES = "ldpcgputegra_tpu/kernels/pallas_layered.py:139"  # _build_kernel
 # mirrored from csrc/layered_minsum.cu
 _TB = 32
 _MAX_DEG = 32
+
+# Integer operations per edge update, counted from the source: the first
+# pass (mod-Z index 5, message address and load 3, APP address and load
+# 2, subtract and clamp 3, |clamp| 3, two-min 3, parity 2: 21) and the
+# writeback (mod-Z index 5, the message 9, its store 2, the APP sum, clamp
+# and store 4: 20); the bound in chip_smoke.py divides by the int32 rate.
+OPS_PER_EDGE = 41
 
 # Kernel launches in this process, by kernel name: the decoder adds one
 # where it launches the kernel, and nowhere else.
@@ -84,6 +96,11 @@ def kernel_unsupported_reason(code: LdpcCode, spec: LayeredSpec):
     why = unsupported_reason(code, spec)
     if why is not None:
         return why
+    if is_qc_view(code):
+        return (f"{code.name}: a QC view (col_perm, deficient circulants, "
+                "sub-pass layers); no staircase view fits a 32-codeword APP "
+                "tile, so this kernel leaves them to the streamed kernel "
+                "(kernels/streamed.py)")
     # the kernel's tables are code.layers: it takes a schedule only where
     # that gives the same QC block-rows
     if not code.is_qc or any(
@@ -95,7 +112,8 @@ def kernel_unsupported_reason(code: LdpcCode, spec: LayeredSpec):
         return f"{code.name}: check degree above {_MAX_DEG}"
     if _smem_bytes(code) > _lib.SMEM_MAX:
         return (f"{code.name}: a 32-codeword APP tile ({_smem_bytes(code)} B) "
-                "does not fit shared memory (ROADMAP queue 2 item 2)")
+                "does not fit shared memory (the streamed kernel, "
+                "kernels/streamed.py, keeps the APP in device memory)")
     return None
 
 

@@ -1,21 +1,29 @@
 """Batched layered min-sum decoding in plain PyTorch.
 
 The port's counterpart of ``ldpcgputegra_tpu/ops/layered.py``, and the
-plain version of the CUDA kernels in ``kernels/layered.py`` (QC codes) and
-``kernels/gather.py`` (any layers): the CPU tests run it, and
+plain version of the CUDA kernels in ``kernels/layered.py`` (QC codes),
+``kernels/gather.py`` (any layers) and ``kernels/streamed.py`` (QC codes
+and views beyond shared memory): the CPU tests run it, and
 ``chip_smoke.py`` holds the kernels against it on the card.
 
 * The APP array is node-major ``[N, B]`` int8; codewords ride the last
   axis.
 * Each layer of ``build_layers(code, spec.schedule)`` is one step over all
-  of its checks at once.  Checks of a layer touch pairwise-disjoint VNs,
-  so that is bit-identical to the reference's sequential check loop.
-* A layer's ``[deg, G]`` index tensor, ``layer.idx.T``, holds the VN of
-  edge j of check g.  For a QC block-row that is ``cols[j]*Z +
-  (shifts[j] + z) % Z`` (the JAX path's ``_roll``); for any other layer
-  it is the JAX path's static gather (``_layer_step_gather``).  The
-  writeback is an index assignment through the same tensor, and the APP
-  array is updated in place, one layer at a time.
+  of its committed checks at once (``codes/code.py::committed_edges``).
+  Those checks touch pairwise-disjoint VNs, so that is bit-identical to
+  the reference's sequential check loop.
+* A layer's ``[deg, G]`` index tensor holds the VN of edge j of check g.
+  For a QC block-row that is ``cols[j]*Z + (shifts[j] + z) % Z`` (the JAX
+  path's ``_roll``); for any other layer it is the JAX path's static
+  gather (``_layer_step_gather``).  The writeback is an index assignment
+  through the same tensor, and the APP array is updated in place, one
+  layer at a time.
+* QC views of staircase codes (``codes/dvbs2.py::to_qc_form``) decode as
+  JAX ``_layer_step_qc`` does: LLRs permuted by ``col_perm`` on the way in
+  and bits back on the way out; a sub-pass layer computes and commits only
+  its ``commit_rows``, and only their parity counts; the deficient edge's
+  contribution is pinned to -sat_var, nothing is written back at it, and
+  its message stays 0.
 * Early termination freezes each converged codeword: its APP and messages
   stop changing, so its output is its hard decision at the end of the
   first iteration whose on-the-fly parity is all zero.  The loop stops
@@ -33,12 +41,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..codes.code import LdpcCode
-from ..codes.dvbs2 import is_staircase
+from ..codes.code import LdpcCode, committed_edges
 from ..codes.schedule import build_layers
 
 __all__ = ["LayeredSpec", "make_layered_decoder", "SAT_VAR", "SAT_MSG",
-           "unsupported_reason"]
+           "unsupported_reason", "is_qc_view"]
 
 SAT_VAR = 127
 SAT_MSG = 31
@@ -126,48 +133,60 @@ def _cn_update(c: torch.Tensor, spec: LayeredSpec):
     return m, parity
 
 
-def _layer_step(V, msg, idx, spec: LayeredSpec, active=None):
+def _layer_step(V, msg, idx, spec: LayeredSpec, active=None, pin=None):
     """One layer, in place on V [N, B] int8.
 
     ``idx`` [deg, G] holds the VN of edge j of check g; ``msg`` is the
     layer's [deg, G, B] int8 messages.  ``active`` ([B] bool, early
-    termination) keeps converged codewords unchanged.  Returns the new
-    messages and the [G, B] parity.
+    termination) keeps converged codewords unchanged.  ``pin`` is None or
+    ``(pinned [deg, G] bool, keep)``: pinned edges contribute -sat_var,
+    keep their message and write nothing; ``keep`` indexes the other
+    slots of the flattened [deg * G].  Returns the new messages and the
+    [G, B] parity.
     """
     sv = spec.sat_var
     rolled = V[idx]  # [deg, G, B]
     c = (rolled.to(_CT) - msg.to(_CT)).clamp(-sv, sv)
+    if pin is not None:
+        c = c.masked_fill(pin[0][..., None], -sv)
     new_msgs, parity = _cn_update(c, spec)
     v_new = (c + new_msgs).clamp(-sv, sv).to(_ST)
     m_new = new_msgs.to(_ST)
     if active is not None:
         v_new = torch.where(active, v_new, rolled)
         m_new = torch.where(active, m_new, msg)
-    V[idx.reshape(-1)] = v_new.reshape(-1, V.shape[1])
+    v_new = v_new.reshape(-1, V.shape[1])
+    if pin is None:
+        V[idx.reshape(-1)] = v_new
+    else:
+        m_new = torch.where(pin[0][..., None], msg, m_new)
+        V[idx.reshape(-1)[pin[1]]] = v_new[pin[1]]
     return m_new, parity
 
 
+def is_qc_view(code: LdpcCode) -> bool:
+    """True for a code with ``col_perm``, deficient circulants or sub-pass
+    layers (a QC view of a staircase code, ``codes/dvbs2.py``)."""
+    return code.col_perm is not None or any(
+        lay.qc is not None
+        and (lay.qc.mask_edge is not None or lay.qc.commit_rows is not None)
+        for lay in code.layers
+    )
+
+
 def unsupported_reason(code: LdpcCode, spec: LayeredSpec):
-    """Why the port's layered decoders cannot take this code yet, naming
-    the ROADMAP item; None when they can."""
+    """Why the port's layered decoders cannot take this code and schedule;
+    None when they can."""
     if spec.schedule == "flooding":
         return "the flooding schedule is not ported yet (ROADMAP queue 1 item 12)"
     if spec.schedule not in ("auto", "reference", "colored"):
         return f"unknown schedule {spec.schedule!r}"
-    if code.Z is None and code.col_perm is None and is_staircase(code):
-        return (f"{code.name}: staircase (DVB-S2-family) codes decode through "
-                "their Z=360 QC view, which is not ported yet (ROADMAP queue 1 "
-                "item 11)")
-    # QC descriptors come only from the reference layers; colored layers
-    # carry none
-    if code.col_perm is not None or any(
-        lay.qc is not None
-        and (lay.qc.mask_edge is not None or lay.qc.commit_rows is not None)
-        for lay in code.layers
-    ):
-        return (f"{code.name}: col_perm views, deficient circulants and "
-                "sub-pass layers are not ported yet (ROADMAP queue 2 item 1 "
-                "step 4)")
+    if spec.schedule == "colored" and is_qc_view(code):
+        # colored layers come from class_idx, which still holds the
+        # deficient circulant's spurious wrap edge (ROADMAP section 3)
+        return (f"{code.name}: the colored schedule of a QC view colors its "
+                "class_idx, which holds the deficient circulant's spurious "
+                "edge; decode the view in the auto or reference schedule")
     return None
 
 
@@ -177,19 +196,33 @@ def make_layered_decoder(
     device="cpu",
 ):
     """Build ``decode(llr[B, N] int8) -> (bits[B, N] uint8, iters_used)``
-    running on ``device``; ``iters_used`` is a 0-d int32 tensor."""
+    running on ``device``; ``iters_used`` is a 0-d int32 tensor.  A QC
+    view's callers keep the base code's column order."""
     why = unsupported_reason(code, spec)
     if why is not None:
         raise NotImplementedError(why)
     device = torch.device(device)
-    layers = tuple(build_layers(code, spec.schedule))
-    idxs = [torch.as_tensor(lay.idx.T.astype(np.int64), device=device)
-            for lay in layers]
+    idxs, pins = [], []
+    for lay in build_layers(code, spec.schedule):
+        idx, pinned = committed_edges(lay)
+        idxs.append(torch.as_tensor(idx.T.astype(np.int64), device=device))
+        if pinned is None:
+            pins.append(None)
+        else:
+            keep = np.flatnonzero(~pinned.T.ravel())
+            pins.append((torch.as_tensor(pinned.T, device=device),
+                         torch.as_tensor(keep, device=device)))
+    perm = inv_perm = None
+    if code.col_perm is not None:
+        perm = torch.as_tensor(code.col_perm, dtype=torch.int64, device=device)
+        inv_perm = torch.empty_like(perm)
+        inv_perm[perm] = torch.arange(code.N, device=device)
 
     def iteration(V, msgs, active=None):
         unsat = None
         for li, idx in enumerate(idxs):
-            msgs[li], parity = _layer_step(V, msgs[li], idx, spec, active)
+            msgs[li], parity = _layer_step(V, msgs[li], idx, spec, active,
+                                           pins[li])
             lay_unsat = (parity != 0).any(0)  # [B]
             unsat = lay_unsat if unsat is None else (unsat | lay_unsat)
         return unsat
@@ -203,10 +236,12 @@ def make_layered_decoder(
             device.index is not None and llr.device.index != device.index
         ):
             raise ValueError(f"llr is on {llr.device}, decoder on {device}")
+        if perm is not None:
+            llr = llr[:, perm]  # into the view's column order
         V = llr.t().contiguous()  # interleave: frame-major -> node-major
         B = V.shape[1]
-        msgs = [torch.zeros((lay.deg, lay.n_checks, B), dtype=_ST,
-                            device=V.device) for lay in layers]
+        msgs = [torch.zeros((*idx.shape, B), dtype=_ST, device=V.device)
+                for idx in idxs]
         if not spec.early_term:
             for _ in range(spec.iters):
                 iteration(V, msgs)
@@ -218,7 +253,10 @@ def make_layered_decoder(
             while used < spec.iters and bool(unsat.any()):
                 unsat = unsat & iteration(V, msgs, active=unsat)
                 used += 1
-        bits = (V > 0).to(torch.uint8).t().contiguous()
-        return bits, torch.tensor(used, dtype=torch.int32, device=V.device)
+        bits = (V > 0).to(torch.uint8).t()
+        if inv_perm is not None:
+            bits = bits[:, inv_perm]  # back to the base code's order
+        return bits.contiguous(), torch.tensor(used, dtype=torch.int32,
+                                               device=V.device)
 
     return decode

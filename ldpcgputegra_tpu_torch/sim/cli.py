@@ -45,9 +45,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "reference", "colored", "flooding"],
                    help="layered check order (flooding: not ported yet)")
     g.add_argument("--backend", default="auto",
-                   choices=["auto", "cuda", "cuda-gather", "torch", "native"],
+                   choices=["auto", "cuda", "cuda-gather", "cuda-streamed",
+                            "torch", "native"],
                    help="cuda = hand-written QC kernel, cuda-gather = "
                         "hand-written kernel for any layers (non-QC codes), "
+                        "cuda-streamed = hand-written kernel with the APP in "
+                        "device memory (DVB-S2 QC views, synthqc), "
                         "torch = plain PyTorch (native: not ported yet)")
     g.add_argument("--device", default=None,
                    help="torch device (default: cuda when available, else cpu)")
@@ -162,9 +165,9 @@ def _print_info(cfg: SweepConfig) -> None:
     import torch
 
     from ..codes.registry import load_code
-    from ..decoder import backend_for, default_device
+    from ..decoder import backend_for, default_device, effective_code
 
-    code = load_code(cfg.code)
+    code = effective_code(load_code(cfg.code))
     device = torch.device(cfg.device) if cfg.device else default_device()
     if device.type != "cuda":
         name = "cpu"
@@ -176,7 +179,9 @@ def _print_info(cfg: SweepConfig) -> None:
     print(f"(II) code         : N={code.N} K={code.K} M={code.M} "
           f"checks={code.n_checks} Z={code.Z} rate={code.rate:.3f}")
     print(f"(II) layers       : {len(code.layers)} "
-          f"(qc {sum(1 for l in code.layers if l.qc is not None)})")
+          f"(qc {sum(1 for l in code.layers if l.qc is not None)}, sub-pass "
+          f"{sum(1 for l in code.layers if l.qc and l.qc.commit_rows is not None)})"
+          + (" of the QC view" if code.col_perm is not None else ""))
     try:
         backend = backend_for(code, _spec(cfg), device, cfg.backend)
     except NotImplementedError as e:
@@ -191,6 +196,13 @@ def _print_info(cfg: SweepConfig) -> None:
         print(f"(II) gather       : {len(build_layers(code, cfg.schedule))} "
               f"{cfg.schedule} layers, {tile} codewords per CTA, "
               f"{smem_bytes(code.N, tile)} B shared memory")
+    if backend == "cuda-streamed":
+        from ..kernels.streamed import pick_tile
+
+        tile = pick_tile(code, cfg.batch)
+        print(f"(II) streamed     : {tile} codewords per CTA at batch "
+              f"{cfg.batch}, APP and messages in device memory "
+              f"({-(-cfg.batch // tile) * tile * (code.N + code.M)} B)")
 
 
 def _print_histo(cfg: SweepConfig) -> None:

@@ -71,7 +71,7 @@ class SweepConfig:
     pipeline_depth: int = 2  # batches kept in flight
     scan_steps: int = 1  # only 1 is ported (ROADMAP queue 1 item 7)
 
-    backend: str = "auto"  # auto | cuda | torch
+    backend: str = "auto"  # auto | cuda | cuda-gather | cuda-streamed | torch
     channel_rng: str = "threefry"  # read only by backend='native'
     encoder: str = "fake"  # only the fake (all-zero) encoder is ported
     random_bits: bool = True

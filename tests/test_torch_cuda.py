@@ -1,5 +1,6 @@
-"""The CUDA kernels (the QC layered min-sum kernel and the gather kernel for
-any layers) against their plain PyTorch version, on the card.  Every test
+"""The CUDA kernels (the QC layered min-sum kernel, the gather kernel for
+any layers and the streamed kernel for QC codes and views beyond shared
+memory) against their plain PyTorch version, on the card.  Every test
 here needs an NVIDIA GPU and skips without one.
 
 On a machine with a card (and without jax, which ``tests/conftest.py``
@@ -15,9 +16,17 @@ import numpy as np
 import pytest
 import torch
 
-from ldpcgputegra_tpu_torch.codes.registry import load_code
+from ldpcgputegra_tpu_torch.codes.code import LdpcCode
+from ldpcgputegra_tpu_torch.codes.dvbs2 import to_qc_form
+from ldpcgputegra_tpu_torch.codes.registry import (
+    load_code,
+    make_qc_code,
+    make_random_qc_code,
+)
+from ldpcgputegra_tpu_torch.decoder import effective_code
 from ldpcgputegra_tpu_torch.kernels import gather as G
 from ldpcgputegra_tpu_torch.kernels import layered as K
+from ldpcgputegra_tpu_torch.kernels import streamed as S
 from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec, make_layered_decoder
 
 pytestmark = pytest.mark.cuda
@@ -123,3 +132,79 @@ def test_gather_kernel_counts_launches_and_checks_inputs(dev):
     with pytest.raises(ValueError):
         dec(llr[:, :-1].contiguous())
     assert G.launches["gather_minsum"] == before + 1
+
+
+_TOY = np.array([[0, 2, -1, 5, 1, -1, 3, 0],
+                 [4, -1, 1, 0, -1, 2, 0, 6],
+                 [-1, 3, 0, -1, 6, 0, 2, 1]])
+
+
+def _small_staircase_view():
+    """A z=8, q=3 staircase code (two info groups) QC-ified at z=8: its
+    view has col_perm, the deficient circulant and sub-pass layers."""
+    z, q, table = 8, 3, [[0, 3, 4, 7], [2, 5, 6]]
+    M, K = z * q, z * len(table)
+    rows = [{K + r} | ({K + r - 1} if r else set()) for r in range(M)]
+    for g, line in enumerate(table):
+        for t in range(z):
+            for p in line:
+                rows[(p + t * q) % M].add(g * z + t)
+    degs = sorted({len(r) for r in rows}, reverse=True)
+    classes = [(d, sum(len(r) == d for r in rows)) for d in degs]
+    edges = np.concatenate([sorted(r) for d in degs for r in rows
+                            if len(r) == d]).astype(np.int32)
+    raw = LdpcCode.from_edges("stair40", K + M, K, classes, edges,
+                              detect_qc=False)
+    return to_qc_form(raw, z=z)
+
+
+def _streamed_code(name):
+    if name == "toy8":
+        return make_qc_code("toy8", _TOY, Z=8)
+    if name == "stair40":
+        return _small_staircase_view()
+    if name == "randqc":
+        return make_random_qc_code(24, 12, 5, Z=32, seed=3)
+    return effective_code(load_code(name))
+
+
+@pytest.mark.parametrize("name", ["toy8", "stair40", "randqc", "16200x7560",
+                                  "16200x10800"])
+@pytest.mark.parametrize("algo,minclamp", [("OMS", "pre"), ("MS", "post"),
+                                           ("NMS", "pre"), ("2NMS", "post")])
+@pytest.mark.parametrize("et", [False, True])
+def test_streamed_kernel_matches_plain(dev, name, algo, minclamp, et):
+    code = _streamed_code(name)
+    spec = LayeredSpec(algo=algo, iters=6, minclamp=minclamp, early_term=et)
+    llr = torch.from_numpy(_llrs(code.N, 257, seed=7, std=0.6)).to(dev)
+    kb, ki = S.make_streamed_decoder(code, spec)(llr)
+    pb, pi = make_layered_decoder(code, spec, dev)(llr)
+    assert torch.equal(kb, pb)
+    assert int(ki) == int(pi)
+
+
+@pytest.mark.parametrize("tile", S.TILES)
+def test_streamed_kernel_every_tile(dev, tile):
+    """Each tile width the kernel ships, on a view with every feature."""
+    code = _streamed_code("16200x10800")
+    spec = LayeredSpec(iters=5, early_term=True)
+    llr = torch.from_numpy(_llrs(code.N, 100, seed=6, std=0.6)).to(dev)
+    kb, ki = S.make_streamed_decoder(code, spec)(llr, tile=tile)
+    pb, pi = make_layered_decoder(code, spec, dev)(llr)
+    assert torch.equal(kb, pb) and int(ki) == int(pi)
+
+
+def test_streamed_kernel_counts_launches_and_checks_inputs(dev):
+    code = _streamed_code("stair40")
+    dec = S.make_streamed_decoder(code, LayeredSpec(iters=3))
+    llr = torch.from_numpy(_llrs(code.N, 64, seed=1)).to(dev)
+    before = S.launches["streamed_minsum"]
+    dec(llr)
+    assert S.launches["streamed_minsum"] == before + 1
+    with pytest.raises(TypeError):
+        dec(llr.to(torch.int16))
+    with pytest.raises(ValueError):
+        dec(llr.t().contiguous().t())  # not contiguous
+    with pytest.raises(ValueError):
+        dec(llr[:, :-1].contiguous())
+    assert S.launches["streamed_minsum"] == before + 1

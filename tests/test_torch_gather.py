@@ -20,7 +20,7 @@ from ldpcgputegra_tpu.codes.registry import (
 from ldpcgputegra_tpu.ops.layered import LayeredSpec as JSpec
 from ldpcgputegra_tpu.ops.layered import make_layered_decoder as j_decoder
 from ldpcgputegra_tpu_torch.codes.convert import gather_tables
-from ldpcgputegra_tpu_torch.codes.dvbs2 import is_staircase
+from ldpcgputegra_tpu_torch.codes.dvbs2 import is_staircase, to_qc_form
 from ldpcgputegra_tpu_torch.codes.registry import (
     list_codes,
     load_code,
@@ -99,7 +99,8 @@ def test_is_staircase_matches_jax(name):
 
 def test_auto_routing_of_every_registry_code():
     """On a CUDA device: QC codes take the QC kernel, non-QC codes the
-    gather kernel, staircase codes raise; on the CPU ``auto`` is torch."""
+    gather kernel, staircase codes (their QC views) the streamed kernel; on
+    the CPU ``auto`` is torch."""
     assert sorted(list_codes()) == sorted(QC + list(NON_QC_TILE) + STAIRCASE)
     spec = LayeredSpec()
     for name in QC:
@@ -108,8 +109,7 @@ def test_auto_routing_of_every_registry_code():
         assert backend_for(load_code(name), spec, CUDA) == "cuda-gather"
         assert backend_for(load_code(name), spec, "cpu") == "torch"
     for name in STAIRCASE:
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            backend_for(load_code(name), spec, CUDA)
+        assert backend_for(load_code(name), spec, CUDA) == "cuda-streamed"
 
 
 def test_routing_of_schedules_on_qc_codes():
@@ -220,8 +220,13 @@ def test_gather_wrapper_checks():
     with pytest.raises(NotImplementedError, match="does not fit shared memory"):
         G.make_gather_decoder(make_random_regular_code(30000, 15000, 6, seed=1),
                               LayeredSpec())
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        G.make_gather_decoder(load_code("16200x7560"), LayeredSpec())
+    # a QC view is refused by the kernel itself; the raw staircase code
+    # decodes in its own (colored) layers, as JAX's gather path takes it
+    with pytest.raises(NotImplementedError, match="QC view"):
+        G.make_gather_decoder(to_qc_form(load_code("16200x7560")),
+                              LayeredSpec())
+    assert G.kernel_unsupported_reason(load_code("16200x7560"),
+                                       LayeredSpec()) is None
 
 
 def test_make_decoder_cuda_gather_backend_on_cpu_tensors():
@@ -251,6 +256,8 @@ def test_cli_info_resolves_the_gather_backend(capsys):
     assert "backend      : cuda-gather" in out
     assert "11 auto layers, 8 codewords per CTA, 32032 B" in out
     cli.main(["--code", "16200x7560", "--info", "--device", "cuda"])
-    assert "queue 1 item 11" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "backend      : cuda-streamed" in out
+    assert "21 (qc 21, sub-pass 0) of the QC view" in out
     cli.main(["--code", "4000x2000", "--info", "--device", "cpu"])
     assert "backend      : torch" in capsys.readouterr().out

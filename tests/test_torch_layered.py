@@ -4,6 +4,7 @@ the committed vectors and the golden oracle: bit-exact in bits and
 int8 arrays.
 """
 
+import dataclasses
 import glob
 import os
 
@@ -15,7 +16,9 @@ from ldpcgputegra_tpu.codes.registry import load_code as j_load_code
 from ldpcgputegra_tpu.golden.decoder import GoldenParams, decode_golden
 from ldpcgputegra_tpu.ops.layered import LayeredSpec as JSpec
 from ldpcgputegra_tpu.ops.layered import make_layered_decoder as j_decoder
+from ldpcgputegra_tpu_torch.codes.dvbs2 import to_qc_form
 from ldpcgputegra_tpu_torch.codes.registry import load_code
+from ldpcgputegra_tpu_torch.decoder import make_decoder
 from ldpcgputegra_tpu_torch.kernels.layered import make_cuda_decoder
 from ldpcgputegra_tpu_torch.ops.layered import (
     LayeredSpec,
@@ -161,5 +164,13 @@ def test_unported_codes_and_schedules_raise():
     # reach it
     with pytest.raises(NotImplementedError, match="non-QC layers"):
         make_cuda_decoder(load_code("576x288"), LayeredSpec(schedule="colored"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        make_layered_decoder(load_code("16200x7560"), LayeredSpec())
+    # the staircase 16200x7560 decodes through its QC view: make_decoder on
+    # the raw code gives the view's bits in the original column order
+    raw = load_code("16200x7560")
+    view = to_qc_form(raw)
+    llr = torch.from_numpy(_llrs(raw.N, 3, 9, 0.6))
+    spec = LayeredSpec(iters=3)
+    bits, _ = make_decoder(raw, spec, device="cpu")(llr)
+    vb, _ = make_layered_decoder(dataclasses.replace(view, col_perm=None),
+                                 spec)(llr[:, view.col_perm])
+    assert torch.equal(bits, vb[:, np.argsort(view.col_perm)])

@@ -162,12 +162,16 @@ def test_backend_routing():
     assert backend_for(qc, spec, "cpu") == "torch"
     assert backend_for(qc, spec, torch.device("cuda")) == "cuda"
     # non-QC layers (a non-QC code, or a QC code in the colored schedule)
-    # take the gather kernel; what neither kernel takes raises
+    # take the gather kernel, a staircase code's QC view the streamed
+    # kernel; what no kernel takes raises
     assert backend_for(nonqc, spec, torch.device("cuda")) == "cuda-gather"
     assert backend_for(qc, LayeredSpec(schedule="colored"),
                        torch.device("cuda")) == "cuda-gather"
+    assert backend_for(load_code("16200x7560"), spec,
+                       torch.device("cuda")) == "cuda-streamed"
     with pytest.raises(NotImplementedError):
-        backend_for(load_code("16200x7560"), spec, torch.device("cuda"))
+        backend_for(load_code("16200x7560"), LayeredSpec(schedule="colored"),
+                    torch.device("cuda"))
     with pytest.raises(NotImplementedError):
         backend_for(qc, LayeredSpec(schedule="flooding"), torch.device("cuda"))
     with pytest.raises(NotImplementedError):
