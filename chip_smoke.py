@@ -112,15 +112,17 @@ def _throughput(kdec, pdec, name, B, smi, dev, seed0):
     return t_k, t_p
 
 
-def _bound(name, B, iters, ops_per_edge, sm_count, clock_hz):
+def _bound(name, B, iters, sm_count, clock_hz):
     """The least time the card could take for one decode of B codewords at
     ``iters`` iterations, ET off: the larger of the operations (edge updates
-    x the kernel's integer operations per edge update, over the int32 issue
-    rate) and the bytes (the LLRs read once and the bits written once, over
-    the device memory rate).  Returns (ms, "operations" | "bytes")."""
+    x the integer operations one min-sum edge update needs,
+    ``kernels/_lib.py::OPS_PER_EDGE``, over the int32 issue rate) and the
+    bytes (the LLRs read once and the bits written once, over the device
+    memory rate).  Returns (ms, "operations" | "bytes")."""
     from ldpcgputegra_tpu_torch.codes.code import committed_edges
     from ldpcgputegra_tpu_torch.codes.registry import load_code
     from ldpcgputegra_tpu_torch.decoder import effective_code
+    from ldpcgputegra_tpu_torch.kernels._lib import OPS_PER_EDGE
 
     code = effective_code(load_code(name))
     edges = 0  # real edges: a deficient circulant's pinned one is no work
@@ -128,14 +130,15 @@ def _bound(name, B, iters, ops_per_edge, sm_count, clock_hz):
         idx, pinned = committed_edges(lay)
         edges += idx.size - (0 if pinned is None else int(pinned.sum()))
     updates = edges * B * iters
-    ops_s = updates * ops_per_edge / (sm_count * INT32_LANES_PER_SM * clock_hz)
+    ops_s = updates * OPS_PER_EDGE / (sm_count * INT32_LANES_PER_SM * clock_hz)
     bytes_s = 2 * B * code.N / HBM_BYTES_PER_S
     print(f"[bound] {name} B={B} {iters} it: {updates:.4e} edge updates x "
-          f"{ops_per_edge} ops = {ops_s * 1e3:.4f} ms; LLRs + bits "
-          f"{2 * B * code.N / 1e6:.1f} MB = {bytes_s * 1e3:.4f} ms; note: "
+          f"{OPS_PER_EDGE} ops = {ops_s * 1e3:.4f} ms; LLRs + bits "
+          f"{2 * B * code.N / 1e6:.1f} MB = {bytes_s * 1e3:.4f} ms; notes: "
           f"message traffic {2 * updates / 1e9:.2f} GB "
           f"({2 * updates / HBM_BYTES_PER_S * 1e3:.4f} ms at the device "
-          "memory rate)")
+          f"memory rate); int8x4 SIMD, four codewords an operation if each "
+          f"were one instruction: {ops_s / 4 * 1e3:.4f} ms")
     if ops_s >= bytes_s:
         return ops_s * 1e3, "operations"
     return bytes_s * 1e3, "bytes"
@@ -343,7 +346,7 @@ def main() -> int:
         code = effective_code(load_code(name))
         spec = LayeredSpec(algo="OMS", iters=10)
         print(f"[throughput] {name} B={B}: tile "
-              f"{S.pick_tile(code, B)}")
+              f"{S.pick_tile(code, B, sm_count)}")
         s_times[name] = _throughput(
             S.make_streamed_decoder(code, spec),
             make_layered_decoder(code, spec, dev), name, B, smi, dev,
@@ -358,16 +361,15 @@ def main() -> int:
     # the bound of every timed decode: the least time the card could take
     # (``_bound``), and the kernel's share of it
     bounds = {}
-    timed = ([("layered_minsum", K, "2304x1152", 8192, (t_k, t_p))]
-             + [("gather_minsum", G, n, B, g_times[n]) for n, B in
+    timed = ([("layered_minsum", "2304x1152", 8192, (t_k, t_p))]
+             + [("gather_minsum", n, B, g_times[n]) for n, B in
                 (("4000x2000", 4096), ("8000x4000", 2048),
                  ("20000x10000", 1024))]
-             + [("streamed_minsum", S, n, B, s_times[n]) for n, B in
+             + [("streamed_minsum", n, B, s_times[n]) for n, B in
                 (("64800x32400", 512), ("16200x7560", 1024),
                  ("64800x6480-dvbs2", 256), ("synthqc-256x128x6-z1024", 256))])
-    for kname, mod, name, B, (t, _) in timed:
-        b_ms, b_by = _bound(name, B, 10, mod.OPS_PER_EDGE, sm_count,
-                            clock_mhz * 1e6)
+    for kname, name, B, (t, _) in timed:
+        b_ms, b_by = _bound(name, B, 10, sm_count, clock_mhz * 1e6)
         bounds[name] = (b_ms, b_by)
         print(f"[roofline] {kname} {name} B={B}: {t * 1e3:.4f} ms against a "
               f"bound of {b_ms:.4f} ms ({b_by}), {b_ms / (t * 1e3):.1%} of "

@@ -7,13 +7,15 @@ larger ones) and each tile the kernel builds (``streamed.TILES``, codewords
 per CTA), prints the kernel's ms per decode at OMS, ET off
 (``measure_call``, CUDA events), the card's name and power limit beside
 it.  ``--check`` first holds every tile against the plain version on the
-card (bits and ``iters_used``, ET on).  ``pick_tile``'s policy is read
-from this table (``PERF.md``).  Needs a CUDA device.
+card (bits and ``iters_used``, ET on).  Each tile is forced by replacing
+``streamed.pick_tile`` for the length of its calls.  ``pick_tile``'s
+policy is read from this table (``PERF.md``).  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import subprocess
 import sys
@@ -39,6 +41,18 @@ def llrs(code, B: int, snr_db: float, seed: int) -> torch.Tensor:
     rng = np.random.default_rng(seed)
     y = (-1.0 + sigma * rng.standard_normal((B, code.N))).astype(np.float32)
     return torch.from_numpy(np.clip(8.0 * y, -31, 31).astype(np.int8))
+
+
+@contextlib.contextmanager
+def forced_tile(tile: int):
+    """Within the block, every streamed decoder launches ``tile``
+    codewords per CTA."""
+    picked = streamed.pick_tile
+    streamed.pick_tile = lambda code, B, sms=None: tile
+    try:
+        yield
+    finally:
+        streamed.pick_tile = picked
 
 
 def main(argv=None) -> int:
@@ -69,7 +83,8 @@ def main(argv=None) -> int:
             pb, pi = make_layered_decoder(code, spec, dev)(llr)
             dec = streamed.make_streamed_decoder(code, spec)
             for tile in streamed.TILES:
-                kb, ki = dec(llr, tile=tile)
+                with forced_tile(tile):
+                    kb, ki = dec(llr)
                 torch.cuda.synchronize()
                 ok = torch.equal(kb, pb) and int(ki) == int(pi)
                 print(f"[check] {name} B={B} tile {tile}: "
@@ -83,8 +98,8 @@ def main(argv=None) -> int:
         inputs = [llrs(code, B, 2.0, seed=s).to(dev) for s in range(2)]
         row = []
         for tile in streamed.TILES:
-            t = measure_call(lambda x, tile=tile: dec(x, tile=tile), inputs,
-                             k_small=2, k_large=6, repeats=2)
+            with forced_tile(tile):
+                t = measure_call(dec, inputs, k_small=2, k_large=6, repeats=2)
             row.append(f"{tile}: {t * 1e3:.4f}")
         print(f"[tiles] {name} B={B} OMS {args.iters} ET off, ms by tile: "
               + ", ".join(row) + f" | {smi}", flush=True)

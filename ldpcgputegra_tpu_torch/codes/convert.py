@@ -5,10 +5,9 @@ JAX package's ``LdpcCode`` (plain numpy arrays and ints), so tests can
 hold the port's own ``load_code`` against the reference code object.
 
 ``qc_tables`` turns a code's QC block-rows into the small int32 tables
-the QC kernel walks; ``gather_tables`` turns the layers of any schedule
-into the per-edge tables the gather kernel walks; ``streamed_tables``
-turns the committed edges of a code's layers (QC views included) into the
-per-edge tables the streamed kernel walks.
+the QC kernel walks; ``edge_tables`` turns the committed edges of the
+layers of any schedule (QC views included) into the per-edge tables the
+gather and streamed kernels walk.
 """
 
 from __future__ import annotations
@@ -21,10 +20,9 @@ import torch
 from .code import DegreeClass, LdpcCode, committed_edges
 from .schedule import build_layers
 
-__all__ = ["code_from_numpy", "qc_tables", "gather_tables", "streamed_tables",
-           "PINNED"]
+__all__ = ["code_from_numpy", "qc_tables", "edge_tables", "PINNED"]
 
-PINNED = -1  # streamed_tables' VN id of a deficient-circulant edge
+PINNED = -1  # edge_tables' wide VN id of a deficient-circulant edge
 
 
 def code_from_numpy(
@@ -83,50 +81,35 @@ def qc_tables(code: LdpcCode, device) -> dict[str, torch.Tensor]:
             "cols": t(cols), "shifts": t(shifts)}
 
 
-def gather_tables(code: LdpcCode, spec, device) -> dict[str, torch.Tensor]:
-    """The layers of ``build_layers(code, spec.schedule)`` as device
-    tensors, in schedule order.
-
-    Layer l has ``n_checks[l]`` checks of degree ``deg[l]``; its edge slots
-    are ``row_ptr[l] : row_ptr[l+1]``, degree-major: edge j of check g is
-    slot ``row_ptr[l] + j * n_checks[l] + g``, and ``vn[slot]`` is its VN
-    (uint16 values stored as int16, so N < 65536).
-    """
-    if code.N > 65535:
-        raise ValueError(f"{code.name}: N={code.N} does not fit uint16 VN ids")
-    layers = build_layers(code, spec.schedule)
-    n_checks = np.asarray([lay.n_checks for lay in layers], dtype=np.int32)
-    deg = np.asarray([lay.deg for lay in layers], dtype=np.int32)
-    row_ptr = np.concatenate([[0], np.cumsum(n_checks * deg)]).astype(np.int32)
-    vn = np.concatenate([lay.idx.T.ravel() for lay in layers])
-    return {
-        "row_ptr": torch.as_tensor(row_ptr, device=device),
-        "n_checks": torch.as_tensor(n_checks, device=device),
-        "deg": torch.as_tensor(deg, device=device),
-        "vn": torch.as_tensor(vn.astype(np.uint16).view(np.int16),
-                              device=device),
-    }
-
-
-def streamed_tables(code: LdpcCode, spec, device) -> dict[str, torch.Tensor]:
+def edge_tables(code: LdpcCode, spec, device,
+                wide: bool = True) -> dict[str, torch.Tensor]:
     """The committed edges of ``build_layers(code, spec.schedule)``
-    (``codes/code.py::committed_edges``) as int32 device tensors, in
-    schedule order.
+    (``codes/code.py::committed_edges``) as device tensors, in schedule
+    order: the per-edge tables that the gather and streamed kernels walk.
 
-    Laid out as ``gather_tables``: layer l has ``n_checks[l]`` committed
-    checks of degree ``deg[l]``, edge j of check g is slot ``row_ptr[l] +
-    j * n_checks[l] + g``, and ``vn[slot]`` is its VN, or ``PINNED`` for a
-    deficient-circulant edge (its contribution is -sat_var and it writes
-    nothing; its message slot is never read or written).  ``perm`` is the
-    view's ``col_perm`` (the kernel loads ``app[n] = llr[col_perm[n]]``
-    and stores ``bits[col_perm[n]] = app[n] > 0``), or empty.
+    Layer l has ``n_checks[l]`` committed checks of degree ``deg[l]`` (a
+    sub-pass layer's commit rows, else all of its checks); its edge slots
+    are ``row_ptr[l] : row_ptr[l+1]``, degree-major: edge j of check g is
+    slot ``row_ptr[l] + j * n_checks[l] + g``, and ``vn[slot]`` is its VN.
+    ``perm`` is the view's ``col_perm`` (the streamed kernel loads
+    ``app[n] = llr[col_perm[n]]`` and stores ``bits[col_perm[n]] = app[n] >
+    0``), or empty.
+
+    ``wide`` VN ids are int32, ``PINNED`` for a deficient-circulant edge
+    (its contribution is -sat_var, it writes nothing, and its message slot
+    is never read or written): the streamed kernel's.  Narrow ones are
+    uint16 values stored as int16, for N < 65536 and no pinned edge: the
+    gather kernel's.
     """
-    layers = build_layers(code, spec.schedule)
+    if not wide and code.N > 65535:
+        raise ValueError(f"{code.name}: N={code.N} does not fit uint16 VN ids")
     n_checks, deg, vns = [], [], []
-    for lay in layers:
+    for lay in build_layers(code, spec.schedule):
         idx, pinned = committed_edges(lay)
         vn = idx.T.astype(np.int32)  # [deg, G]
         if pinned is not None:
+            if not wide:
+                raise ValueError(f"{code.name}: a pinned edge needs wide VN ids")
             vn[pinned.T] = PINNED
         n_checks.append(idx.shape[0])
         deg.append(idx.shape[1])
@@ -136,10 +119,12 @@ def streamed_tables(code: LdpcCode, spec, device) -> dict[str, torch.Tensor]:
     row_ptr = np.concatenate([[0], np.cumsum(n_checks * deg)])
     if row_ptr[-1] >= 2**31:
         raise ValueError(f"{code.name}: {row_ptr[-1]} edge slots overflow int32")
+    vn = np.concatenate(vns)
+    vn = vn if wide else vn.astype(np.uint16).view(np.int16)
     perm = np.zeros(0) if code.col_perm is None else code.col_perm
 
-    def t(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
+    def t(a, dtype=np.int32):
+        return torch.as_tensor(np.asarray(a, dtype=dtype), device=device)
 
     return {"row_ptr": t(row_ptr), "n_checks": t(n_checks), "deg": t(deg),
-            "vn": t(np.concatenate(vns)), "perm": t(perm)}
+            "vn": t(vn, vn.dtype), "perm": t(perm)}

@@ -1,4 +1,4 @@
-// Layered min-sum decoding of QC codes whose APP array does not fit shared
+// Layered min-sum decoding of codes whose APP array does not fit shared
 // memory, on Hopper (sm_90a): the DVB-S2 path (the Z=360 QC views of the
 // staircase codes, 16200 and 64800 bits) and synthqc-256x128x6-z1024
 // (262144 bits).
@@ -28,13 +28,14 @@
 // Mapping (the gather kernel's, gather_minsum.cu): one CTA of 512 threads
 // decodes a tile of TB codewords (a template parameter); thread t works on
 // codeword t % TB and on checks t / TB, t / TB + 512 / TB, ... of the
-// current layer, walking per-edge tables (codes/convert.py::
-// streamed_tables): a sub-pass layer is just its committed checks, and the
+// current layer, walking per-edge tables (codes/convert.py::edge_tables,
+// int32 VN ids): a sub-pass layer is just its committed checks, and the
 // deficient-circulant edge is a VN id of -1 whose contribution is -sat_var
-// and which writes nothing, so there is no QC special case.  The checks of
-// a layer touch pairwise-disjoint VNs, so they run in parallel with a
-// result bit-identical to the reference's sequential check loop.  The VN
-// ids of a QC block-row are consecutive in z, so the 512 / TB checks and TB
+// and which writes nothing, so there is no QC special case, and any
+// conflict-free layers decode.  The checks of a layer touch
+// pairwise-disjoint VNs, so they run in parallel with a result
+// bit-identical to the reference's sequential check loop.  The VN ids of a
+// QC block-row are consecutive in z, so there the 512 / TB checks and TB
 // codewords of one warp-wide APP or message access are 32 contiguous bytes.
 // The contribution array is unrolled to DMAX (8, 16 or 32, a template
 // parameter), the smallest that holds the code's degrees (30 at
@@ -44,15 +45,16 @@
 // (app[n] = llr[perm[n]], bits[perm[n]] = app[n] > 0), so the view costs no
 // extra pass over the batch.
 //
-// What bounds it: each edge of each codeword costs about 39 integer
-// operations (kernels/streamed.py::OPS_PER_EDGE), an int8 APP read and write
-// and an int8 message read and write in device memory per iteration.  At
-// 64800x32400, B = 512, 10 iterations that is 1.16e9 edge updates, 2.7 ms
-// of int32 issue on the H100 against 0.02 ms for the LLRs and bits.  In
-// practice each lane waits on device memory for every check it walks, one
-// after the other (PERF.md), so the design issues all of a check's loads
-// before it uses any, and the tile (kernels/streamed.py::pick_tile) is the
-// narrowest whose CTAs all fit the card at once: the most check lanes.
+// What bounds it: each edge of each codeword costs the 21 integer operations
+// of a min-sum edge update (kernels/_lib.py::OPS_PER_EDGE), an int8 APP read
+// and write and an int8 message read and write in device memory per
+// iteration.  At 64800x32400, B = 512, 10 iterations that is 1.16e9 edge
+// updates, 1.5 ms of int32 issue on the H100 against 0.02 ms for the LLRs
+// and bits.  In practice each lane waits on device memory for every check
+// it walks, one after the other (PERF.md), so the design issues all of a
+// check's loads before it uses any, and the tile (kernels/streamed.py::
+// pick_tile) is the narrowest whose CTAs all fit the card at once: the most
+// check lanes.
 //
 // Offsets: a CTA's APP and message base pointers are size_t (E x B reaches
 // 8e8 at 64800x6480-dvbs2, B = 4096); offsets inside one tile are int, and

@@ -9,8 +9,9 @@ Backends:
 * ``cuda-gather`` — the hand-written gather kernel (``kernels/gather.py``):
   the layers of any schedule, so the non-QC codes (4000x2000 ...);
 * ``cuda-streamed`` — the hand-written kernel with the APP in device
-  memory (``kernels/streamed.py``): QC codes and the QC views of staircase
-  codes beyond shared memory (the DVB-S2 family, synthqc);
+  memory (``kernels/streamed.py``): the layers of any schedule, QC views
+  included, so the codes beyond shared memory (the QC views of the DVB-S2
+  family, synthqc);
 * ``torch`` — the plain PyTorch layered decoder (``ops/layered.py``);
 * ``auto`` — on a CUDA device ``cuda`` where the QC kernel takes the code,
   else ``cuda-gather`` where the gather kernel does, else

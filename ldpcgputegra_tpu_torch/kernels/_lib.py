@@ -25,6 +25,15 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SMEM_MAX = 232448  # dynamic shared memory a block can use on Hopper
 ALGO = {"MS": 0, "OMS": 1, "NMS": 2, "2NMS": 3}  # csrc/minsum_common.cuh
 
+# Integer operations that one min-sum edge update needs, whichever kernel
+# runs it (OMS with minclamp 'pre', csrc/minsum_common.cuh): the
+# contribution (subtract, clamp: 3), its magnitude (clamp to sat_msg, |.|:
+# 3), the two-min (3), the sign and parity (2), the message (min-edge
+# compare and select 2, sign 3, clamp 2: 7) and the APP sum and clamp (3).
+# Addressing, loads and stores are not counted, nor the per-check offset.
+# chip_smoke.py's bound divides edge updates x this by the int32 rate.
+OPS_PER_EDGE = 21
+
 
 def _nvcc() -> str:
     path = shutil.which("nvcc") or os.path.join(

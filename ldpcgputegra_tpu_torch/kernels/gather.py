@@ -32,7 +32,7 @@ from typing import Optional
 import torch
 
 from ..codes.code import LdpcCode
-from ..codes.convert import gather_tables
+from ..codes.convert import edge_tables
 from ..codes.schedule import build_layers
 from ..ops.layered import (
     LayeredSpec,
@@ -43,8 +43,7 @@ from ..ops.layered import (
 from . import _lib
 
 __all__ = ["make_gather_decoder", "kernel_unsupported_reason", "pick_tile",
-           "smem_bytes", "build", "launches", "SOURCE", "REPLACES",
-           "OPS_PER_EDGE"]
+           "smem_bytes", "build", "launches", "SOURCE", "REPLACES"]
 
 SOURCE = os.path.join(_lib.CSRC, "gather_minsum.cu")
 BUILD_DIR = _lib.BUILD_DIR
@@ -56,14 +55,6 @@ REPLACES = ("ldpcgputegra_tpu/kernels/pallas_gather.py:1215 (K3 _build_kernel), 
 NTHREADS = 512  # threads per CTA
 TILES = (8, 16, 32)  # codewords per CTA
 DMAXES = (8, 16, 32)  # unrolled contribution array lengths
-
-# Integer operations per edge update, counted from the source: the first
-# pass (slot index 2, VN id load 1, message and APP addresses and loads 4,
-# subtract and clamp 3, |clamp| 3, two-min 3, parity 2: 18) and the
-# writeback (slot 2, VN id load 1, the message 9, its store 2, the APP sum,
-# clamp and store 4: 18); the bound in chip_smoke.py divides by the int32
-# rate.
-OPS_PER_EDGE = 36
 
 # Kernel launches in this process: the decoder adds one where it launches
 # the kernel, and nowhere else.
@@ -171,7 +162,7 @@ def make_gather_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
         lib = _library()
         dev = llr.device
         if dev not in tables:
-            tables[dev] = gather_tables(code, spec, dev)
+            tables[dev] = edge_tables(code, spec, dev, wide=False)
         t = tables[dev]
         B = llr.shape[0]
         n_edges = int(t["vn"].numel())

@@ -42,7 +42,7 @@ from ..ops.layered import (
 from . import _lib
 
 __all__ = ["make_cuda_decoder", "cuda_supported", "build", "launches",
-           "SOURCE", "REPLACES", "OPS_PER_EDGE"]
+           "SOURCE", "REPLACES"]
 
 SOURCE = os.path.join(_lib.CSRC, "layered_minsum.cu")
 BUILD_DIR = _lib.BUILD_DIR
@@ -51,13 +51,6 @@ REPLACES = "ldpcgputegra_tpu/kernels/pallas_layered.py:139"  # _build_kernel
 # mirrored from csrc/layered_minsum.cu
 _TB = 32
 _MAX_DEG = 32
-
-# Integer operations per edge update, counted from the source: the first
-# pass (mod-Z index 5, message address and load 3, APP address and load
-# 2, subtract and clamp 3, |clamp| 3, two-min 3, parity 2: 21) and the
-# writeback (mod-Z index 5, the message 9, its store 2, the APP sum, clamp
-# and store 4: 20); the bound in chip_smoke.py divides by the int32 rate.
-OPS_PER_EDGE = 41
 
 # Kernel launches in this process, by kernel name: the decoder adds one
 # where it launches the kernel, and nowhere else.

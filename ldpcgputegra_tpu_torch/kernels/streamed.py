@@ -1,5 +1,5 @@
 """Wrapper of the hand-written CUDA streamed min-sum kernel
-(``csrc/streamed_minsum.cu``): layered min-sum of QC codes whose APP array
+(``csrc/streamed_minsum.cu``): layered min-sum of codes whose APP array
 does not fit shared memory, the decode path of the DVB-S2 family (the
 Z=360 QC views of the staircase codes) and of synthqc-256x128x6-z1024.
 
@@ -10,10 +10,10 @@ neither fits a block's shared memory at these sizes, so the APP and the
 messages are scratch buffers in device memory that this wrapper allocates
 (``[ceil(B / tile)][N][tile]`` and ``[ceil(B / tile)][E][tile]`` int8).
 
-What bounds it on the card: ``OPS_PER_EDGE`` integer operations per edge
-update, plus an int8 APP and message read and write per edge update in
-device memory, mostly served by the L2; ``pick_tile`` picks the codewords
-per CTA for check lanes and CTAs in flight.
+What bounds it on the card: the latency of each check lane's APP and
+message accesses in device memory, mostly served by the L2 (``PERF.md``
+§6); ``pick_tile`` picks the codewords per CTA for check lanes and CTAs in
+flight.
 
 The kernel is compiled at first use (``kernels/_lib.py``) and loaded with
 ctypes.  Importing this module needs neither nvcc nor CUDA.  On a CPU
@@ -32,13 +32,12 @@ from typing import Optional
 import torch
 
 from ..codes.code import LdpcCode
-from ..codes.convert import streamed_tables
-from ..codes.schedule import build_layers
+from ..codes.convert import edge_tables
 from ..ops.layered import LayeredSpec, make_layered_decoder, unsupported_reason
 from . import _lib
 
 __all__ = ["make_streamed_decoder", "kernel_unsupported_reason", "pick_tile",
-           "build", "launches", "SOURCE", "REPLACES", "OPS_PER_EDGE"]
+           "build", "launches", "SOURCE", "REPLACES"]
 
 SOURCE = os.path.join(_lib.CSRC, "streamed_minsum.cu")
 BUILD_DIR = _lib.BUILD_DIR
@@ -47,16 +46,8 @@ REPLACES = "ldpcgputegra_tpu/kernels/pallas_streamed.py:73"  # _build_streamed_k
 # mirrored from csrc/streamed_minsum.cu
 NTHREADS = 512  # threads per CTA
 TILES = (32, 16, 8, 4, 2, 1)  # codewords per CTA
-SMS = 132  # the H100's SMs (pick_tile)
 DMAXES = (8, 16, 32)  # unrolled contribution array lengths
-
-# Integer operations per edge update, counted from the source: the first
-# pass (slot index 2, VN id and message loads 2, APP address and load 3,
-# subtract and clamp 3, the pinned select 2, |clamp| 3, two-min 3, parity
-# 2: 20) and the writeback (slot 2, VN id load and test 2, the message 9,
-# its store 2, the APP sum, clamp and store 4: 19); the bound in
-# chip_smoke.py divides by the int32 rate.
-OPS_PER_EDGE = 39
+SMS_H100 = 132  # an H100 SXM's SMs: pick_tile's count where no card is read
 
 # Kernel launches in this process: the decoder adds one where it launches
 # the kernel, and nowhere else.
@@ -65,19 +56,17 @@ launches = {"streamed_minsum": 0}
 _lib_handle: Optional[ctypes.CDLL] = None
 
 
-def pick_tile(code: LdpcCode, B: int) -> int:
-    """Codewords per CTA for a batch of ``B``: the narrowest tile whose
-    CTAs all fit the card at once, else the widest.
+def pick_tile(code: LdpcCode, B: int, sms: int = SMS_H100) -> int:
+    """Codewords per CTA for a batch of ``B`` on a card of ``sms`` SMs: the
+    narrowest tile whose CTAs all fit the card at once, else the widest.
 
     Each lane walks its checks of a layer one after the other and waits
     on device memory for each, so more lanes (512 / tile) win until the
-    CTAs no longer fit: two on each of the 132 SMs at DMAX = 8 (64
-    registers a thread), one at DMAX = 16 and 32 (``SMS``,
-    ``csrc/streamed_minsum.cu``'s launch bounds).  Measured on the H100
-    (PERF.md): 64800x32400 (DMAX 8) at B=512, tiles 32/16/8/4/2/1 took
-    74.50/38.58/19.66/10.29/7.55/9.54 ms; 64800x6480-dvbs2 (DMAX 32) at
-    B=256, 76.33/41.50/23.68/15.09/11.48/18.38 ms."""
-    ctas = SMS * (2 if _dmax(code) == 8 else 1)
+    CTAs no longer fit: two on each SM at DMAX = 8 (64 registers a
+    thread), one at DMAX = 16 and 32 (``csrc/streamed_minsum.cu``'s launch
+    bounds).  The tile against ms on the H100 is ``PERF.md`` §6's table,
+    from ``bench/tiles.py``."""
+    ctas = sms * (2 if _dmax(code) == 8 else 1)
     return next((t for t in reversed(TILES) if -(-B // t) <= ctas), TILES[0])
 
 
@@ -113,11 +102,6 @@ def kernel_unsupported_reason(code: LdpcCode, spec: LayeredSpec):
     why = unsupported_reason(code, spec)
     if why is not None:
         return why
-    if code.Z is None or any(
-            lay.qc is None for lay in build_layers(code, spec.schedule)):
-        return (f"{code.name}: the {spec.schedule} schedule gives non-QC "
-                "layers; this kernel, as K2, takes QC block-rows only (the "
-                "gather kernel, kernels/gather.py, walks any layers)")
     if _dmax(code) == 0:
         return f"{code.name}: check degree above {DMAXES[-1]}"
     return None
@@ -125,16 +109,15 @@ def kernel_unsupported_reason(code: LdpcCode, spec: LayeredSpec):
 
 def make_streamed_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
     """Build ``decode(llr[B, N] int8) -> (bits[B, N] uint8, iters_used)``
-    over the committed edges of ``build_layers(code, spec.schedule)``;
-    ``code`` may be a QC view (``col_perm``, deficient circulants, sub-pass
-    layers), whose callers keep the base code's column order.
+    over the committed edges of ``build_layers(code, spec.schedule)``,
+    ``pick_tile`` codewords per CTA; ``code`` may be a QC view
+    (``col_perm``, deficient circulants, sub-pass layers), whose callers
+    keep the base code's column order.
 
     On a CUDA tensor the decoder launches the kernel on PyTorch's current
     stream, with no host synchronisation; ``iters_used`` is a 0-d int32
     tensor on the card.  On a CPU tensor it runs the plain version, built
-    on the first such call.  ``decode(llr, tile=t)`` launches a tile of
-    ``TILES`` in place of ``pick_tile``'s, for the tile sweep
-    (``bench/tiles.py``).
+    on the first such call.
     """
     if spec.algo not in _lib.ALGO:
         raise ValueError(f"unknown algo {spec.algo!r}")
@@ -142,25 +125,26 @@ def make_streamed_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
     if why is not None:
         raise NotImplementedError(why)
     dmax = _dmax(code)
-    tables: dict[torch.device, dict] = {}  # copied on the first call per card
+    # the tables and the SM count, read on the first call per card
+    tables: dict[torch.device, tuple[dict, int]] = {}
 
     @functools.cache
     def plain():
         return make_layered_decoder(code, spec, "cpu")
 
-    def decode(llr: torch.Tensor, tile: Optional[int] = None):
+    def decode(llr: torch.Tensor):
         _lib.check_llr(llr, code.N)
-        if tile is not None and tile not in TILES:
-            raise ValueError(f"tile {tile} is not one of {TILES}")
         if llr.device.type == "cpu":
             return plain()(llr)
         lib = _library()
         dev = llr.device
         if dev not in tables:
-            tables[dev] = streamed_tables(code, spec, dev)
-        t = tables[dev]
+            tables[dev] = (edge_tables(code, spec, dev),
+                           torch.cuda.get_device_properties(dev)
+                           .multi_processor_count)
+        t, sms = tables[dev]
         B = llr.shape[0]
-        tile = tile or pick_tile(code, B)
+        tile = pick_tile(code, B, sms)
         n_tiles = -(-B // tile)
         n_edges = int(t["vn"].numel())
         bits = torch.empty((B, code.N), dtype=torch.uint8, device=dev)

@@ -197,11 +197,13 @@ def _print_info(cfg: SweepConfig) -> None:
               f"{cfg.schedule} layers, {tile} codewords per CTA, "
               f"{smem_bytes(code.N, tile)} B shared memory")
     if backend == "cuda-streamed":
-        from ..kernels.streamed import pick_tile
+        from ..kernels.streamed import SMS_H100, pick_tile
 
-        tile = pick_tile(code, cfg.batch)
+        sms = (torch.cuda.get_device_properties(device).multi_processor_count
+               if torch.cuda.is_available() else SMS_H100)
+        tile = pick_tile(code, cfg.batch, sms)
         print(f"(II) streamed     : {tile} codewords per CTA at batch "
-              f"{cfg.batch}, APP and messages in device memory "
+              f"{cfg.batch} on {sms} SMs, APP and messages in device memory "
               f"({-(-cfg.batch // tile) * tile * (code.N + code.M)} B)")
 
 

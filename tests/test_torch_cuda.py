@@ -169,7 +169,7 @@ def _streamed_code(name):
 
 
 @pytest.mark.parametrize("name", ["toy8", "stair40", "randqc", "16200x7560",
-                                  "16200x10800"])
+                                  "16200x10800", "200x100"])
 @pytest.mark.parametrize("algo,minclamp", [("OMS", "pre"), ("MS", "post"),
                                            ("NMS", "pre"), ("2NMS", "post")])
 @pytest.mark.parametrize("et", [False, True])
@@ -185,11 +185,15 @@ def test_streamed_kernel_matches_plain(dev, name, algo, minclamp, et):
 
 @pytest.mark.parametrize("tile", S.TILES)
 def test_streamed_kernel_every_tile(dev, tile):
-    """Each tile width the kernel ships, on a view with every feature."""
+    """Each tile width the kernel ships, on a view with every feature,
+    through the batch that ``pick_tile`` maps to it on this card (DMAX 16:
+    one CTA an SM)."""
     code = _streamed_code("16200x10800")
     spec = LayeredSpec(iters=5, early_term=True)
-    llr = torch.from_numpy(_llrs(code.N, 100, seed=6, std=0.6)).to(dev)
-    kb, ki = S.make_streamed_decoder(code, spec)(llr, tile=tile)
+    B = tile * torch.cuda.get_device_properties(dev).multi_processor_count
+    assert S.pick_tile(code, B, B // tile) == tile
+    llr = torch.from_numpy(_llrs(code.N, B, seed=6, std=0.6)).to(dev)
+    kb, ki = S.make_streamed_decoder(code, spec)(llr)
     pb, pi = make_layered_decoder(code, spec, dev)(llr)
     assert torch.equal(kb, pb) and int(ki) == int(pi)
 

@@ -15,7 +15,7 @@ from ldpcgputegra_tpu.codes.dvbs2 import to_qc_form as j_to_qc_form
 from ldpcgputegra_tpu.codes.registry import load_code as j_load_code
 from ldpcgputegra_tpu.golden import GoldenParams, decode_oracle
 from ldpcgputegra_tpu_torch.codes.code import committed_edges
-from ldpcgputegra_tpu_torch.codes.convert import PINNED, streamed_tables
+from ldpcgputegra_tpu_torch.codes.convert import PINNED, edge_tables
 from ldpcgputegra_tpu_torch.codes.dvbs2 import to_qc_form
 from ldpcgputegra_tpu_torch.codes.registry import list_codes, load_code
 from ldpcgputegra_tpu_torch.decoder import (
@@ -83,7 +83,7 @@ def test_streamed_tables_describe_the_committed_edges():
     """Per layer: only the committed checks, degree-major, the deficient
     edge as PINNED; every real edge of the view exactly once."""
     view = effective_code(load_code("16200x10800"))
-    t = {k: v.numpy() for k, v in streamed_tables(
+    t = {k: v.numpy() for k, v in edge_tables(
         view, LayeredSpec(), "cpu").items()}
     assert t["vn"].dtype == np.int32
     np.testing.assert_array_equal(t["perm"], view.col_perm)
@@ -107,6 +107,27 @@ def test_streamed_tables_describe_the_committed_edges():
     base_deg = np.bincount(load_code("16200x10800").edges, minlength=view.N)
     np.testing.assert_array_equal(np.bincount(real, minlength=view.N),
                                   base_deg[view.col_perm])
+
+
+@pytest.mark.parametrize("name,schedule", [("4000x2000", "auto"),
+                                           ("576x288", "colored"),
+                                           ("1944x972", "auto")])
+def test_edge_tables_narrow_and_wide_agree(name, schedule):
+    """One builder for both kernels: on a code with no view, the gather
+    kernel's uint16 ids and the streamed kernel's int32 ids name the same
+    VNs in the same slots; narrow ids refuse a pinned edge."""
+    code, spec = load_code(name), LayeredSpec(schedule=schedule)
+    narrow = edge_tables(code, spec, "cpu", wide=False)
+    wide = edge_tables(code, spec, "cpu")
+    assert narrow["vn"].dtype == torch.int16 and wide["vn"].dtype == torch.int32
+    for key in ("row_ptr", "n_checks", "deg", "perm"):
+        assert torch.equal(narrow[key], wide[key])
+    np.testing.assert_array_equal(narrow["vn"].numpy().view(np.uint16),
+                                  wide["vn"].numpy())
+    assert wide["perm"].numel() == 0
+    with pytest.raises(ValueError, match="pinned"):
+        edge_tables(effective_code(load_code("16200x7560")), LayeredSpec(),
+                    "cpu", wide=False)
 
 
 def _golden_view(qc):
@@ -192,7 +213,8 @@ def test_auto_routes_every_registry_code_to_a_kernel():
 def test_each_kernel_refuses_what_it_does_not_take():
     """``--backend cuda`` and ``--backend cuda-gather`` on a QC view raise
     their own reasons; the colored schedule of a staircase code raises with
-    its reason; the streamed kernel takes QC block-rows only."""
+    its reason; the streamed kernel walks any layers (a non-QC code, a QC
+    code's colored schedule) up to degree 32."""
     view = effective_code(load_code("16200x7560"))
     with pytest.raises(NotImplementedError, match="QC view"):
         K.make_cuda_decoder(view, LayeredSpec())
@@ -205,8 +227,10 @@ def test_each_kernel_refuses_what_it_does_not_take():
     with pytest.raises(NotImplementedError, match="spurious"):
         backend_for(load_code("16200x7560"), LayeredSpec(schedule="colored"),
                     CUDA)
-    assert "non-QC layers" in S.kernel_unsupported_reason(
-        load_code("4000x2000"), LayeredSpec())
+    assert S.kernel_unsupported_reason(load_code("4000x2000"),
+                                       LayeredSpec()) is None
+    assert S.kernel_unsupported_reason(
+        load_code("576x288"), LayeredSpec(schedule="colored")) is None
     assert "above 32" in S.kernel_unsupported_reason(
         load_code("synthqc-64x8x40-z8"), LayeredSpec())
     # synthqc is beyond both shared-memory kernels
@@ -225,27 +249,30 @@ def test_streamed_wrapper_runs_plain_on_cpu_tensors():
         8.0 * rng.normal(-1.0, 0.6, size=(5, code.N)), -31, 31).astype(np.int8))
     before = S.launches["streamed_minsum"]
     dec = S.make_streamed_decoder(code, spec)
-    with pytest.raises(ValueError, match="tile 3"):
-        dec(llr, tile=3)
     kb, ki = dec(llr)
     pb, pi = make_layered_decoder(code, spec)(llr)
     assert torch.equal(kb, pb) and int(ki) == int(pi)
     assert S.launches["streamed_minsum"] == before  # no kernel on the CPU
 
 
-@pytest.mark.parametrize("name,B,tile", [
-    ("64800x32400", 512, 2), ("64800x32400", 2048, 8),
-    ("16200x7560", 1024, 8), ("64800x6480-dvbs2", 256, 2),
-    ("64800x6480-dvbs2", 1024, 8), (SYNTHQC, 256, 1), ("16200x7560", 9000, 32),
+@pytest.mark.parametrize("name,B,sms,tile", [
+    ("64800x32400", 512, 132, 2), ("64800x32400", 2048, 132, 8),
+    ("16200x7560", 1024, 132, 8), ("64800x6480-dvbs2", 256, 132, 2),
+    ("64800x6480-dvbs2", 1024, 132, 8), (SYNTHQC, 256, 132, 1),
+    ("16200x7560", 9000, 132, 32), ("64800x32400", 512, 114, 4),
+    ("16200x7560", 1024, 114, 16), ("64800x6480-dvbs2", 256, 114, 4),
 ])
-def test_streamed_tile_fills_the_card_once(name, B, tile):
+def test_streamed_tile_fills_the_card_once(name, B, sms, tile):
     """The narrowest tile whose CTAs fit the card at once: two CTAs an SM
-    at DMAX = 8, one at 16 and 32."""
+    at DMAX = 8, one at 16 and 32, on the card's own SMs (132 on an H100
+    SXM, 114 on an H100 PCIe)."""
     code = effective_code(load_code(name))
-    assert S.pick_tile(code, B) == tile
+    assert S.pick_tile(code, B, sms) == tile
     per_sm = 2 if S._dmax(code) == 8 else 1
-    assert -(-B // tile) <= S.SMS * per_sm or tile == S.TILES[0]
-    assert tile == 1 or -(-B // (tile // 2)) > S.SMS * per_sm
+    assert -(-B // tile) <= sms * per_sm or tile == S.TILES[0]
+    assert tile == 1 or -(-B // (tile // 2)) > sms * per_sm
+    if sms == S.SMS_H100:
+        assert S.pick_tile(code, B) == tile  # the default without a card
 
 
 def test_cli_info_resolves_the_streamed_backend(capsys):

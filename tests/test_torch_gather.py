@@ -19,7 +19,7 @@ from ldpcgputegra_tpu.codes.registry import (
 )
 from ldpcgputegra_tpu.ops.layered import LayeredSpec as JSpec
 from ldpcgputegra_tpu.ops.layered import make_layered_decoder as j_decoder
-from ldpcgputegra_tpu_torch.codes.convert import gather_tables
+from ldpcgputegra_tpu_torch.codes.convert import edge_tables
 from ldpcgputegra_tpu_torch.codes.dvbs2 import is_staircase, to_qc_form
 from ldpcgputegra_tpu_torch.codes.registry import (
     list_codes,
@@ -179,7 +179,8 @@ def test_fit_refuses_codes_beyond_an_8_codeword_tile():
 def test_gather_tables_describe_the_schedule(name, schedule):
     code = load_code(name)
     spec = LayeredSpec(schedule=schedule)
-    t = {k: v.numpy() for k, v in gather_tables(code, spec, "cpu").items()}
+    t = {k: v.numpy() for k, v in edge_tables(code, spec, "cpu",
+                                              wide=False).items()}
     layers = build_layers(code, schedule)
     assert t["vn"].dtype == np.int16 and t["row_ptr"].dtype == np.int32
     assert len(t["deg"]) == len(layers) and t["row_ptr"][-1] == code.M
