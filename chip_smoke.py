@@ -5,18 +5,25 @@
 
 Builds the hand-written CUDA kernels from ``ldpcgputegra_tpu_torch/csrc/``
 (one nvcc per source, all at once): the QC kernel (``layered_minsum``), the
-gather kernel for non-QC codes (``gather_minsum``) and the streamed kernel
-for the DVB-S2 QC views and synthqc (``streamed_minsum``).  Holds the QC
-kernel against the committed golden vectors, and each kernel against the
-plain PyTorch decoder on the card; times both; then drives each kernel's
-path (``run_sweep`` and the CLI, at 1944x972, 4000x2000 and 64800x32400)
-and checks that it went through the kernel.  Imports nothing of JAX.
-Exits non-zero, before printing any result, when there is no CUDA device
-or the package is not beside this script; any failing phase exits
-non-zero.  The last line of standard output is ``{"ok": true, "device":
-{...}}``; the line before it lists each kernel with its launches on its
-path, its largest disagreement with the plain version, its time, the
-plain version's and its bound (the least time the card could take).
+gather kernel for non-QC codes (``gather_minsum``), the streamed kernel
+for the DVB-S2 QC views and synthqc (``streamed_minsum``), the probes of
+the card's ceilings (``probes.cu``: ``probe_mix``, ``probe_peak``,
+``probe_copy``) and the roll probe (``roll_probe.cu``: ``probe_roll``).
+Holds the QC kernel against the committed golden vectors, and each kernel
+against its plain PyTorch version on the card; times both; then drives
+each kernel's path and checks that it went through the kernel: the
+decoders through ``run_sweep`` and the CLI (1944x972, 4000x2000,
+64800x32400), the probes through the benchmark suite
+(``bench/suite.py --quick``, which measures the ceilings and times all 40
+suite rows and 4 latency rows) and the odd-Z profile
+(``bench/profile_1944.py``), whose outputs go to ``bench_results/smoke/``.
+Imports nothing of JAX.  Exits non-zero, before printing any result, when
+there is no CUDA device or the package is not beside this script; any
+failing phase exits non-zero.  The last line of standard output is
+``{"ok": true, "device": {...}}``; the line before it lists each kernel
+with its launches on its path, its largest disagreement with the plain
+version, its time, the plain version's, the library call's and its bound
+(the least time the card could take, at the data sheet's rates).
 """
 
 from __future__ import annotations
@@ -31,10 +38,6 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-
-
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
-INT32_LANES_PER_SM = 64  # int32 issue rate: SMs x 64 lanes x max SM clock
 
 
 def _llrs(N: int, B: int, snr_db: float, seed: int, rate: float = 0.5):
@@ -112,38 +115,6 @@ def _throughput(kdec, pdec, name, B, smi, dev, seed0):
     return t_k, t_p
 
 
-def _bound(name, B, iters, sm_count, clock_hz):
-    """The least time the card could take for one decode of B codewords at
-    ``iters`` iterations, ET off: the larger of the operations (edge updates
-    x the integer operations one min-sum edge update needs,
-    ``kernels/_lib.py::OPS_PER_EDGE``, over the int32 issue rate) and the
-    bytes (the LLRs read once and the bits written once, over the device
-    memory rate).  Returns (ms, "operations" | "bytes")."""
-    from ldpcgputegra_tpu_torch.codes.code import committed_edges
-    from ldpcgputegra_tpu_torch.codes.registry import load_code
-    from ldpcgputegra_tpu_torch.decoder import effective_code
-    from ldpcgputegra_tpu_torch.kernels._lib import OPS_PER_EDGE
-
-    code = effective_code(load_code(name))
-    edges = 0  # real edges: a deficient circulant's pinned one is no work
-    for lay in code.layers:
-        idx, pinned = committed_edges(lay)
-        edges += idx.size - (0 if pinned is None else int(pinned.sum()))
-    updates = edges * B * iters
-    ops_s = updates * OPS_PER_EDGE / (sm_count * INT32_LANES_PER_SM * clock_hz)
-    bytes_s = 2 * B * code.N / HBM_BYTES_PER_S
-    print(f"[bound] {name} B={B} {iters} it: {updates:.4e} edge updates x "
-          f"{OPS_PER_EDGE} ops = {ops_s * 1e3:.4f} ms; LLRs + bits "
-          f"{2 * B * code.N / 1e6:.1f} MB = {bytes_s * 1e3:.4f} ms; notes: "
-          f"message traffic {2 * updates / 1e9:.2f} GB "
-          f"({2 * updates / HBM_BYTES_PER_S * 1e3:.4f} ms at the device "
-          f"memory rate); int8x4 SIMD, four codewords an operation if each "
-          f"were one instruction: {ops_s / 4 * 1e3:.4f} ms")
-    if ops_s >= bytes_s:
-        return ops_s * 1e3, "operations"
-    return bytes_s * 1e3, "bytes"
-
-
 def _main_path(code_name, batch, snr, cli_snr, max_frames, dev, counter, key):
     """``run_sweep`` at two SNR points and the CLI at one, on the card;
     returns the kernel launches they made.  FER must fall with SNR and the
@@ -183,6 +154,145 @@ def _main_path(code_name, batch, snr, cli_snr, max_frames, dev, counter, key):
     return n_launch
 
 
+def _ints(dev, n, seed, low=-31, high=32):
+    """int32 [n] on ``dev``, uniform in [low, high), from a numpy seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(low, high, n, dtype=np.int32)).to(dev)
+
+
+def _hold_probes(dev, sms):
+    """Each probe kernel against its plain version on the card, exact in
+    int32: the mix and the peak at a few (CTAs an SM, chains, reps), the
+    int8x4 mix, the copy on 16 MiB and 256 MiB, the roll at every Z in both
+    index forms.  Returns the largest |difference| by kernel (0)."""
+    import torch
+
+    from ldpcgputegra_tpu_torch.bench import profile_1944 as P
+    from ldpcgputegra_tpu_torch.bench import vpu_probe as V
+
+    def diff(a, b):
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    err = {"probe_mix": 0, "probe_peak": 0, "probe_copy": 0, "probe_roll": 0}
+    full = (-2**31, 2**31 - 1)
+    cases = [("mix", 1, 1, 3, False), ("mix", 2, 4, 37, False),
+             ("mix", 4, 8, _probe_reps("mix", 4, 8, sms), False),
+             ("mix", 8, 16, 5, False), ("peak", 1, 32, 9, False),
+             ("peak", 2, 8, 6, False),
+             ("peak", 4, 16, _probe_reps("peak", 4, 16, sms), False),
+             ("mix", 1, 1, 3, True), ("mix", 2, 4, 37, True),
+             ("mix", 4, 16, 201, True)]
+    for i, (kind, ctas, chains, reps, packed) in enumerate(cases):
+        x = _ints(dev, V.BLOCK * sms * ctas, 700 + i, *(full if packed else ()))
+        if kind == "mix":
+            k, p = V.probe_mix(x, chains, reps, packed), V.mix_plain(
+                x, chains, reps, packed)
+        else:
+            k, p = V.probe_peak(x, chains, reps), V.peak_plain(x, chains, reps)
+        torch.cuda.synchronize()
+        e = diff(k, p)
+        err[f"probe_{kind}"] = max(err[f"probe_{kind}"], e)
+        print(f"[probe-vs-plain] {'int8x4 ' if packed else ''}{kind} "
+              f"{ctas} CTAs/SM x{chains} chains, {reps} reps: max|diff|={e}")
+    for mib in (16, 256):
+        # 3 elements more than a whole number of int4: the scalar tail
+        x = _ints(dev, (mib << 18) + 3, 720 + mib, -100, 100)
+        e = diff(V.probe_copy(x), V.copy_plain(x))
+        err["probe_copy"] = max(err["probe_copy"], e)
+        print(f"[probe-vs-plain] copy {mib} MiB: max|diff|={e}")
+    for Z in P.ZS:
+        x = P.slabs(Z, dev, seed=740 + Z)
+        p = P.roll_plain(x, P.N_ROLLS)
+        for form in P.FORMS:
+            e = diff(P.probe_roll(x, P.N_ROLLS, form), p)
+            err["probe_roll"] = max(err["probe_roll"], e)
+            print(f"[probe-vs-plain] roll Z={Z} {form}, {P.N_ROLLS} rolls: "
+                  f"max|diff|={e}")
+    assert all(v == 0 for v in err.values()), f"a probe disagrees: {err}"
+    return err
+
+
+def _probe_reps(kind, ctas, chains, sms):
+    """The larger repetition count of the alu sweep at this configuration."""
+    from ldpcgputegra_tpu_torch.bench import vpu_probe as V
+
+    per_rep = V.OPS_PER_REP if kind == "mix" else V.PEAK_OPS_PER_REP
+    return V.sweep_reps(per_rep * V.BLOCK * sms * ctas * chains)[1]
+
+
+def _time_probes(dev, sms, hw, smi):
+    """Each probe kernel's time at a shape its path gives it, its plain
+    version's on the same inputs, the library call's where one PyTorch call
+    computes the same function, and the bound at the data sheet's rates
+    (``roofline.bound``).  Returns {name: (ms, plain_ms, library_ms,
+    bound_ms, what sets the bound)}."""
+    import torch
+
+    from ldpcgputegra_tpu_torch.bench import measure_call
+    from ldpcgputegra_tpu_torch.bench import profile_1944 as P
+    from ldpcgputegra_tpu_torch.bench import vpu_probe as V
+    from ldpcgputegra_tpu_torch.bench.roofline import bound
+
+    def bound_ms(ops, nbytes, smem_seconds=0.0):
+        t, by = bound(ops, nbytes, hw.alu_rate, hw.hbm_bw, smem_seconds)
+        return t * 1e3, by
+
+    out = {}
+    for kind, chains, per_rep in (("mix", 8, V.OPS_PER_REP),
+                                  ("peak", 16, V.PEAK_OPS_PER_REP)):
+        n = V.BLOCK * sms * 4
+        reps = _probe_reps(kind, 4, chains, sms)
+        kfn = V.probe_mix if kind == "mix" else V.probe_peak
+        pfn = V.mix_plain if kind == "mix" else V.peak_plain
+        xs = [_ints(dev, n, 760 + i) for i in range(4)]
+        t = measure_call(lambda x: kfn(x, chains, reps), xs)
+        t_p = measure_call(lambda x: pfn(x, chains, reps), xs[:1], k_small=1,
+                           k_large=2, repeats=1)
+        # nvcc fuses and folds the algorithmic operations (VIADDMNMX is an
+        # add and a max), so the operations the function needs are the
+        # integer-ALU instructions of its chains, without the loop control
+        algo = n * chains * per_rep * reps
+        ops = n * chains * reps * V.sass_per_chain_rep(kind, chains)
+        issued = n * reps * V.sass_per_rep(kind, chains)[1]
+        out[f"probe_{kind}"] = (t * 1e3, t_p * 1e3, None,
+                                *bound_ms(ops, 8 * n))
+        print(f"[probe-time] {kind} 4 CTAs/SM x{chains}, {reps} reps: kernel "
+              f"{t * 1e3:.4f} ms ({algo / t / 1e12:.4f} Tops/s algorithmic, "
+              f"{issued / t / 1e12:.4f} T ALU instructions/s issued), plain "
+              f"{t_p * 1e3:.4f} ms; bound {ops / hw.alu_rate * 1e3:.4f} ms "
+              f"in the chains' ALU instructions ({issued / hw.alu_rate * 1e3:.4f}"
+              f" ms with the loop control, {algo / hw.alu_rate * 1e3:.4f} ms "
+              f"in algorithmic operations) | {smi}")
+    n = 256 << 18
+    xs = [_ints(dev, n, 770 + i, -100, 100) for i in range(4)]
+    ys = torch.empty_like(xs[0])
+    t = measure_call(V.probe_copy, xs)
+    t_p = measure_call(V.copy_plain, xs)
+    t_l = measure_call(lambda x: torch.add(x, 1, out=ys), xs)
+    out["probe_copy"] = (t * 1e3, t_p * 1e3, t_l * 1e3, *bound_ms(n, 8 * n))
+    print(f"[probe-time] copy 256 MiB: kernel {t * 1e3:.4f} ms "
+          f"({8 * n / t / 1e9:.1f} GB/s), plain {t_p * 1e3:.4f} ms, "
+          f"torch.add {t_l * 1e3:.4f} ms ({8 * n / t_l / 1e9:.1f} GB/s) | {smi}")
+    Z = 96
+    xs = [P.slabs(Z, dev, seed=780 + i) for i in range(4)]
+    t = measure_call(lambda x: P.probe_roll(x, P.N_ROLLS, "wrap"), xs)
+    t_p = measure_call(lambda x: P.roll_plain(x, P.N_ROLLS), xs, k_small=2,
+                       k_large=6)
+    n = xs[0].numel()
+    # one slab an SM: each rotation moves two slabs through shared memory
+    t_smem = P.roll_bound_ns(Z, hw.clock_hz) * P.N_ROLLS * 1e-9
+    out["probe_roll"] = (t * 1e3, t_p * 1e3, None,
+                         *bound_ms(n * P.N_ROLLS, 8 * n, t_smem))
+    print(f"[probe-time] roll Z={Z} wrap, {P.N_ROLLS} rolls, {sms} slabs: "
+          f"kernel {t * 1e3:.4f} ms, plain {t_p * 1e3:.4f} ms; bound "
+          f"{out['probe_roll'][3]:.4f} ms ({out['probe_roll'][4]}; the adds "
+          f"{n * P.N_ROLLS / hw.alu_rate * 1e3:.4f} ms) | {smi}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -191,6 +301,10 @@ def main() -> int:
         return 1
     import numpy as np
 
+    from ldpcgputegra_tpu_torch.bench import profile_1944 as P
+    from ldpcgputegra_tpu_torch.bench import suite
+    from ldpcgputegra_tpu_torch.bench import vpu_probe as V
+    from ldpcgputegra_tpu_torch.bench.roofline import hw_spec, roofline_report
     from ldpcgputegra_tpu_torch.codes.registry import load_code
     from ldpcgputegra_tpu_torch.decoder import backend_for, effective_code
     from ldpcgputegra_tpu_torch.kernels import gather as G
@@ -214,23 +328,21 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    clock_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0])
-    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    hw = hw_spec(dev)  # SM count, max SM clock, the data sheet's rates
+    sm_count = hw.sm_count
     print(f"[device] {kind} | count {torch.cuda.device_count()} | "
           f"torch {torch.__version__} cuda {torch.version.cuda} | "
-          f"{sm_count} SMs, max SM clock {clock_mhz:.0f} MHz")
+          f"{sm_count} SMs, max SM clock {hw.clock_hz / 1e6:.0f} MHz")
     print(f"[device] nvidia-smi: {smi}")
     phase_done(1)
 
     # 2. build: one nvcc per source, all started together
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = {"layered_minsum": pool.submit(K.build),
                   "gather_minsum": pool.submit(G.build),
-                  "streamed_minsum": pool.submit(S.build)}
+                  "streamed_minsum": pool.submit(S.build),
+                  "probes": pool.submit(V.build),
+                  "roll_probe": pool.submit(P.build)}
         builds = {name: f.result() for name, f in builds.items()}
     for name, info in builds.items():
         print(f"[build] {name}: {os.path.relpath(info['path'], HERE)} in "
@@ -238,6 +350,15 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {line.strip()}")
+    for kind_, chains in ([("mix", c) for c in V.MIX_CHAINS]
+                          + [("mix4", c) for c in V.MIX_CHAINS]
+                          + [("peak", c) for c in V.PEAK_CHAINS]):
+        per_rep = V.PEAK_OPS_PER_REP if kind_ == "peak" else V.OPS_PER_REP
+        chain = (f"; {V.sass_per_chain_rep(kind_, chains)} ALU instructions a "
+                 "chain without the loop control" if chains > 1 else "")
+        print(f"[sass] probe_{kind_} x{chains}: (all, integer ALU pipe) "
+              f"instructions a repetition {V.sass_per_rep(kind_, chains)}; "
+              f"algorithmic operations {per_rep} x {chains}{chain}")
     phase_done(2)
 
     # 3. kernel vs the committed golden vectors (fixed iterations)
@@ -358,8 +479,66 @@ def main() -> int:
                           S.launches, "streamed_minsum")
     phase_done(12)
 
-    # the bound of every timed decode: the least time the card could take
-    # (``_bound``), and the kernel's share of it
+    # 13. each probe kernel against its plain version on the card (exact),
+    # and its time beside the plain version's and its bound
+    p_err = _hold_probes(dev, sm_count)
+    p_times = _time_probes(dev, sm_count, hw, smi)
+    phase_done(13)
+
+    # 14. the benchmark-suite path: the card's ceilings (the K6 and K7
+    # probes), then every suite row and latency row through a kernel
+    # backend, each share against the probed ceilings; counted launches
+    out_dir = os.path.join(HERE, "bench_results", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    suite_out = os.path.join(out_dir, "SUITE.md")
+    for key in V.launches:
+        V.launches[key] = 0
+    rc = suite.main(["--quick", "--fresh", "--out", suite_out])
+    torch.cuda.synchronize()
+    p_launch = dict(V.launches)
+    print(f"[suite] exit {rc}; probe launches: {p_launch}")
+    assert rc == 0, "the suite failed"
+    with open(suite.ckpt_path(suite_out)) as f:
+        ck = json.load(f)
+    rates, srows, lrows = ck["rates"], ck["rows"], ck["lat_rows"]
+    n_rows = sum(len(e[3]) if len(e) > 3 else 2 for e in suite.CONFIGS)
+    assert len(srows) == n_rows == 40 and len(lrows) == 4, (len(srows),
+                                                           len(lrows))
+    for r in srows + lrows:
+        assert r["backend"] in suite.KERNEL_BACKENDS, r
+    for r in srows:
+        assert r["ceiling"] == "probed", r
+        assert math.isfinite(r["roofline_frac"]) and r["roofline_frac"] > 0, r
+        assert r["roofline_frac_mix"] >= r["roofline_frac"], r
+    assert all(n > 0 for n in p_launch.values()), p_launch
+    print(f"[ceilings] int32: probed {rates['alu'] / 1e12:.4f} Tops/s (the "
+          f"best probe), {rates['alu_mix'] / 1e12:.4f} on the decoder's mix; "
+          f"data sheet {hw.alu_rate / 1e12:.4f} ({rates['alu'] / hw.alu_rate:.1%}"
+          f", {rates['alu_mix'] / hw.alu_rate:.1%}); integer-ALU instructions "
+          f"{rates['alu_instructions'] / 1e12:.4f} T/s "
+          f"({rates['alu_instructions'] / hw.alu_rate:.1%}) | {smi}")
+    print(f"[ceilings] int8x4 mix: probed {rates['alu_int8x4'] / 1e12:.4f} "
+          f"Tops/s ({rates['alu_int8x4'] / rates['alu_mix']:.2f}x the int32 "
+          f"mix, {rates['alu_int8x4'] / rates['alu']:.2f}x the best probe) "
+          f"| {smi}")
+    print(f"[ceilings] device memory: probed {rates['hbm'] / 1e9:.1f} GB/s, "
+          f"data sheet {hw.hbm_bw / 1e9:.1f} ({rates['hbm'] / hw.hbm_bw:.1%}) "
+          f"| {smi}")
+    print(f"[ceilings] seen while probing: {rates['seen']} | {smi}")
+    phase_done(14)
+
+    # 15. the odd-Z profile: the K8 roll table and the seven decode rows;
+    # counted launches
+    P.launches["probe_roll"] = 0
+    rc = P.main(["--out", os.path.join(out_dir, "PROFILE_1944.md")])
+    torch.cuda.synchronize()
+    r_launch = P.launches["probe_roll"]
+    print(f"[profile] exit {rc}; probe_roll launches: {r_launch}")
+    assert rc == 0 and r_launch > 0, "the profile failed"
+    phase_done(15)
+
+    # 16. the bound of every timed decode (``bench/roofline.py``): against
+    # the data sheet's rates and against the probed ones
     bounds = {}
     timed = ([("layered_minsum", "2304x1152", 8192, (t_k, t_p))]
              + [("gather_minsum", n, B, g_times[n]) for n, B in
@@ -368,18 +547,39 @@ def main() -> int:
              + [("streamed_minsum", n, B, s_times[n]) for n, B in
                 (("64800x32400", 512), ("16200x7560", 1024),
                  ("64800x6480-dvbs2", 256), ("synthqc-256x128x6-z1024", 256))])
+    spec10 = LayeredSpec(algo="OMS", iters=10)
     for kname, name, B, (t, _) in timed:
-        b_ms, b_by = _bound(name, B, 10, sm_count, clock_mhz * 1e6)
-        bounds[name] = (b_ms, b_by)
+        code = load_code(name)
+        tab = roofline_report(code, spec10, B, t, hw=hw)
+        prb, mix = (roofline_report(code, spec10, B, t, alu, rates["hbm"],
+                                    hw=hw)
+                    for alu in (rates["alu"], rates["alu_mix"]))
+        bounds[name] = (tab["t_roofline_ms"], tab["bound"],
+                        prb["t_roofline_ms"], mix["t_roofline_ms"])
+        print(f"[bound] {name} B={B} 10 it: {tab['edge_updates']:.4e} edge "
+              f"updates x {tab['ops_per_edge']} ops; LLRs + bits "
+              f"{tab['bytes'] / 1e6:.1f} MB = {tab['t_bytes_ms']:.4f} ms; "
+              f"notes: message traffic {tab['msg_bytes'] / 1e9:.2f} GB "
+              f"({tab['t_msg_ms']:.4f} ms at the data sheet's device memory "
+              f"rate); int8x4, four codewords an operation: "
+              f"{tab['t_ops_ms'] / 4:.4f} ms at four times the data sheet's "
+              f"int32 rate, {tab['ops'] / rates['alu_int8x4'] * 1e3:.4f} ms at "
+              f"the probed int8x4 rate")
         print(f"[roofline] {kname} {name} B={B}: {t * 1e3:.4f} ms against a "
-              f"bound of {b_ms:.4f} ms ({b_by}), {b_ms / (t * 1e3):.1%} of "
-              f"it | {smi}")
-    phase_done(13)
+              f"bound of {tab['t_roofline_ms']:.4f} ms ({tab['bound']}, data "
+              f"sheet), {tab['roofline_frac']:.1%} of it; "
+              f"{prb['t_roofline_ms']:.4f} ms ({prb['bound']}, probed), "
+              f"{prb['roofline_frac']:.1%} of it; {mix['t_roofline_ms']:.4f} ms "
+              f"at the mix's probed rate, {mix['roofline_frac']:.1%} of it "
+              f"| {smi}")
+    phase_done(16)
 
     # "route" is how the kernel is written (CUDA C++); "backend" is the
     # decoder backend that ``auto`` resolves to on the path it was driven
-    # on; no one PyTorch call computes a layered min-sum decode, so
-    # "library_ms" is null
+    # on; no one PyTorch call computes a layered min-sum decode, so its
+    # "library_ms" is null.  "bound_ms" is at the data sheet's rates,
+    # "probed_bound_ms" at the best probed ones, "probed_mix_bound_ms" at
+    # the probed rate of the decoder's own mix.
     spec = LayeredSpec(algo="OMS", iters=10, early_term=True)
     rows = [
         ("layered_minsum", "1944x972", K, n_launch, max_err, "2304x1152",
@@ -403,7 +603,30 @@ def main() -> int:
             "plain_ms": t_plain * 1e3,
             "bound_ms": bounds[timed_code][0],
             "bound_by": bounds[timed_code][1],
+            "probed_bound_ms": bounds[timed_code][2],
+            "probed_mix_bound_ms": bounds[timed_code][3],
             "library_ms": None,
+        })
+    probe_rows = [(n, "probes.cu", V.REPLACES[n], p_launch[n])
+                  for n in ("probe_mix", "probe_peak", "probe_copy")]
+    probe_rows.append(("probe_roll", "roll_probe.cu", P.REPLACES, r_launch))
+    # the roll's bound is its shared-memory bytes: "bytes", and "bytes_of"
+    # says which
+    for name, src, replaces, launches in probe_rows:
+        ms, plain_ms, library_ms, b_ms, b_by = p_times[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"ldpcgputegra_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": p_err[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": b_ms,
+            "bound_by": "operations" if b_by == "operations" else "bytes",
+            **({"bytes_of": b_by} if b_by == "shared memory" else {}),
+            "library_ms": library_ms,
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

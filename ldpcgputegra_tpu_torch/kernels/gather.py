@@ -76,9 +76,10 @@ def pick_tile(code: LdpcCode, spec: LayeredSpec) -> int:
 
     The kernel is bound by latency: each lane walks its checks of a layer
     one after the other, so lanes, not codewords, set its speed until they
-    outnumber the checks (measured on the H100, see PERF.md: at 4000x2000,
-    B=4096, tiles 32/16/8 took 3.90/2.22/1.70 ms; at 1024x518, whose
-    layers hold at most 24 checks, 0.91/0.71/1.19 ms)."""
+    outnumber the checks (measured on an NVIDIA H100 80GB HBM3, 700.00 W,
+    ``chip_smoke.py``; see PERF.md §6: at 4000x2000, B=4096, tiles 32/16/8
+    took 3.90/2.22/1.70 ms; at 1024x518, whose layers hold at most 24
+    checks, 0.91/0.71/1.19 ms)."""
     fits = [t for t in TILES if smem_bytes(code.N, t) <= _lib.SMEM_MAX]
     if not fits:
         return 0

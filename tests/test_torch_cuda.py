@@ -1,6 +1,7 @@
 """The CUDA kernels (the QC layered min-sum kernel, the gather kernel for
-any layers and the streamed kernel for QC codes and views beyond shared
-memory) against their plain PyTorch version, on the card.  Every test
+any layers, the streamed kernel for QC codes and views beyond shared
+memory, and the probe kernels of the benchmark-suite path) against their
+plain PyTorch version, on the card.  Every test
 here needs an NVIDIA GPU and skips without one.
 
 On a machine with a card (and without jax, which ``tests/conftest.py``
@@ -10,12 +11,17 @@ imports), run:
 """
 
 import glob
+import math
 import os
 
 import numpy as np
 import pytest
 import torch
 
+from ldpcgputegra_tpu_torch.bench import profile_1944 as P
+from ldpcgputegra_tpu_torch.bench import roofline as R
+from ldpcgputegra_tpu_torch.bench import suite
+from ldpcgputegra_tpu_torch.bench import vpu_probe as V
 from ldpcgputegra_tpu_torch.codes.code import LdpcCode
 from ldpcgputegra_tpu_torch.codes.dvbs2 import to_qc_form
 from ldpcgputegra_tpu_torch.codes.registry import (
@@ -212,3 +218,78 @@ def test_streamed_kernel_counts_launches_and_checks_inputs(dev):
     with pytest.raises(ValueError):
         dec(llr[:, :-1].contiguous())
     assert S.launches["streamed_minsum"] == before + 1
+
+
+# ------------------------------------------- the probes of the suite path --
+
+def _ints_on(dev, n, seed, low=-31, high=32):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(low, high, n, dtype=np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["int32", "int8x4"])
+@pytest.mark.parametrize("chains", V.MIX_CHAINS)
+def test_probe_mix_matches_plain(dev, chains, packed):
+    bounds = (-2**31, 2**31 - 1) if packed else (-31, 32)
+    x = _ints_on(dev, 3 * V.BLOCK + 5, seed=chains, low=bounds[0],
+                 high=bounds[1])
+    for reps in (0, 1, 7, 64):  # the unrolled loop and its remainder
+        assert torch.equal(V.probe_mix(x, chains, reps, packed),
+                           V.mix_plain(x, chains, reps, packed))
+
+
+@pytest.mark.parametrize("chains", V.PEAK_CHAINS)
+def test_probe_peak_matches_plain(dev, chains):
+    x = _ints_on(dev, 3 * V.BLOCK + 5, seed=chains)
+    for reps in (0, 1, 7, 64):
+        assert torch.equal(V.probe_peak(x, chains, reps),
+                           V.peak_plain(x, chains, reps))
+
+
+def test_probe_copy_matches_plain_and_counts(dev):
+    before = V.launches["probe_copy"]
+    # a tail of 1-3 elements, and not a whole number of CTAs
+    for n in (1, 3, 5 * V.BLOCK * 4 + 4 * 7 + 2):
+        x = _ints_on(dev, n, seed=n, low=-100, high=100)
+        assert torch.equal(V.probe_copy(x), V.copy_plain(x))
+    assert V.launches["probe_copy"] == before + 3
+    with pytest.raises(ValueError):
+        V.probe_copy(x[1:])  # not on a 16-byte boundary
+    assert V.launches["probe_copy"] == before + 3
+
+
+@pytest.mark.parametrize("form", P.FORMS)
+@pytest.mark.parametrize("Z", P.ZS)
+def test_probe_roll_matches_plain(dev, Z, form):
+    x = P.slabs(Z, dev, seed=Z)
+    before = P.launches["probe_roll"]
+    assert torch.equal(P.probe_roll(x, P.N_ROLLS, form),
+                       P.roll_plain(x, P.N_ROLLS))
+    assert P.launches["probe_roll"] == before + 1
+
+
+def test_probe_readings_are_finite_and_under_their_ceilings(dev):
+    hw = R.hw_spec(dev)
+    alu = V.measure_alu_rate(dev)
+    hbm = V.measure_hbm_bw(dev)
+    # in the unit the card issues, integer-ALU instructions, no probe may
+    # beat SMs x 64 x the max SM clock; in algorithmic operations the
+    # peak's fused add and max may
+    assert 0 < alu["instructions"] <= V.ALU_SANITY * hw.alu_rate
+    assert alu["mix"] > 0 and alu["peak"] > 0
+    assert 0 < hbm < V.HBM_SANITY
+    for Z in (24, 81):
+        ns = P.roll_ns(Z, "wrap", dev=dev)
+        assert math.isfinite(ns) and 0 < ns < 1e6
+
+
+def test_suite_rows_run_through_a_kernel(dev):
+    rates = {"alu": 2.5e13, "alu_mix": 1.5e13, "hbm": 3e12}
+    row = suite.bench_one("576x288", 2048, 10, True, rates, dev=dev)
+    assert row["backend"] == "cuda" and row["ceiling"] == "probed"
+    assert 0 < row["roofline_frac"] < 1 and row["ms_per_call"] > 0
+    assert row["roofline_frac_mix"] == pytest.approx(
+        row["roofline_frac"] * 2.5 / 1.5, rel=1e-9)
+    lat = suite.bench_latency("4000x2000", 10, True, dev=dev)
+    assert lat["backend"] == "cuda-gather" and lat["batch"] == 128
+    assert lat["ms_per_call"] > 0 and math.isfinite(lat["us_per_frame"])
