@@ -9,8 +9,11 @@ gather kernel for non-QC codes (``gather_minsum``), the streamed kernel
 for the DVB-S2 QC views and synthqc (``streamed_minsum``), the probes of
 the card's ceilings (``probes.cu``: ``probe_mix``, ``probe_peak``,
 ``probe_copy``) and the roll probe (``roll_probe.cu``: ``probe_roll``).
-Holds the QC kernel against the committed golden vectors, and each kernel
-against its plain PyTorch version on the card; times both; then drives
+Prints what the decode kernels compile to (SASS instructions per edge
+update, registers, stack, spills).  Holds the QC kernel against the
+committed golden vectors, and each kernel against its plain PyTorch
+version on the card, the QC and streamed kernels in every variant their
+picks can launch (``bench/tiles.py::check``); times both; then drives
 each kernel's path and checks that it went through the kernel: the
 decoders through ``run_sweep`` and the CLI (1944x972, 4000x2000,
 64800x32400), the probes through the benchmark suite
@@ -51,13 +54,14 @@ def _llrs(N: int, B: int, snr_db: float, seed: int, rate: float = 0.5):
     return np.clip(8.0 * y, -31, 31).astype(np.int8)
 
 
-def _hold(make_kernel_decoder, tag, cases, dev, seed0=100) -> int:
+def _hold(make_kernel_decoder, tag, cases, dev, seed0=100, pick=None) -> int:
     """Decode each case with the kernel and with the plain version on the
     card; both must give the same bits and ``iters_used``.  A case is
     (code, B, algo, minclamp, early_term, Eb/N0 dB[, schedule]); a staircase
-    code decodes through its QC view, as ``make_decoder`` does.  Returns the
-    largest |bit difference| (0); fails unless early termination ended
-    some decode early."""
+    code decodes through its QC view, as ``make_decoder`` does; ``pick(code,
+    B)`` names the variant the kernel's pick launches.  Returns the largest
+    |bit difference| (0); fails unless early termination ended some decode
+    early."""
     import torch
 
     from ldpcgputegra_tpu_torch.codes.registry import load_code
@@ -82,7 +86,8 @@ def _hold(make_kernel_decoder, tag, cases, dev, seed0=100) -> int:
         err = int((kb.to(torch.int16) - pb.to(torch.int16)).abs().max())
         max_err = max(max_err, err)
         ch_err = int((llr > 0).sum())
-        print(f"[{tag}] {name} B={B} {algo}/{mc} ET={et} {schedule} {snr} dB: "
+        via = f" ({pick(code, B)})" if pick else ""
+        print(f"[{tag}] {name} B={B}{via} {algo}/{mc} ET={et} {schedule} {snr} dB: "
               f"max|bits diff|={err} iters kernel={int(ki)} plain={int(pi)} "
               f"channel bit errors={ch_err} decoded={int(kb.sum())}")
         assert err == 0 and int(ki) == int(pi), "kernel disagrees with plain"
@@ -302,7 +307,7 @@ def main() -> int:
     import numpy as np
 
     from ldpcgputegra_tpu_torch.bench import profile_1944 as P
-    from ldpcgputegra_tpu_torch.bench import suite
+    from ldpcgputegra_tpu_torch.bench import sass, suite, tiles
     from ldpcgputegra_tpu_torch.bench import vpu_probe as V
     from ldpcgputegra_tpu_torch.bench.roofline import hw_spec, roofline_report
     from ldpcgputegra_tpu_torch.codes.registry import load_code
@@ -359,6 +364,14 @@ def main() -> int:
         print(f"[sass] probe_{kind_} x{chains}: (all, integer ALU pipe) "
               f"instructions a repetition {V.sass_per_rep(kind_, chains)}; "
               f"algorithmic operations {per_rep} x {chains}{chain}")
+    # the decode kernels' variants on the main paths: SASS per edge
+    # update, registers, stack (spills) and local memory
+    decode_sass = sass.report(HERE)
+    for (kname, what), (_, _, res) in decode_sass.items():
+        # the QC kernel's contributions stay in registers: no stack frame
+        assert kname != "layered_minsum" or res.get("STACK") == 0, (what, res)
+    assert {k for k, _ in decode_sass} == {"layered_minsum", "gather_minsum",
+                                          "streamed_minsum"}, decode_sass
     phase_done(2)
 
     # 3. kernel vs the committed golden vectors (fixed iterations)
@@ -391,15 +404,22 @@ def main() -> int:
         ("1944x972", 1024, "MS", "post", True, 2.0),
         ("1944x972", 1024, "NMS", "post", True, 2.0),
         ("2304x1152", 1024, "2NMS", "post", True, 2.0),
-    ], dev)
+    ], dev, pick=lambda c, B: f"tile {K.pick_tile(c, B, sm_count)}")
+    # every build of the kernel, each forced through its pick
+    max_err = max(max_err, tiles.check("layered", dev))
     phase_done(4)
 
-    # 5. throughput at the bench configuration
-    code = load_code("2304x1152")
-    spec = LayeredSpec(algo="OMS", iters=10)
-    t_k, t_p = _throughput(K.make_cuda_decoder(code, spec),
-                           make_layered_decoder(code, spec, dev),
-                           "2304x1152", 8192, smi, dev, seed0=200)
+    # 5. throughput at the bench configuration and at the sweep's batch
+    k_times = {}
+    for name, B in (("2304x1152", 8192), ("1944x972", 1024)):
+        code = load_code(name)
+        spec = LayeredSpec(algo="OMS", iters=10)
+        print(f"[throughput] {name} B={B}: tile "
+              f"{K.pick_tile(code, B, sm_count)}")
+        k_times[name] = _throughput(K.make_cuda_decoder(code, spec),
+                                    make_layered_decoder(code, spec, dev),
+                                    name, B, smi, dev, seed0=200)
+    t_k, t_p = k_times["2304x1152"]
     phase_done(5)
 
     # 6. the QC path: sweep + CLI at 1944x972, counted launches
@@ -456,7 +476,10 @@ def main() -> int:
         ("synthqc-256x128x6-z1024", 256, "OMS", "pre", True, 4.0),
         ("16200x7560", 500, "OMS", "pre", True, 5.0),
         ("16200x10800", 512, "OMS", "pre", True, 5.0, "reference"),
-    ], dev, seed0=500)
+    ], dev, seed0=500, pick=lambda c, B: S.pick_tile(c, B, sm_count))
+    # every build of the kernel, each forced through its pick: both APP
+    # placements, every tile, 1, 2 and 4 lanes a check
+    s_err = max(s_err, tiles.check("streamed", dev))
     phase_done(10)
 
     # 11. streamed throughput at the suite's batches
@@ -466,7 +489,7 @@ def main() -> int:
                     ("synthqc-256x128x6-z1024", 256)):
         code = effective_code(load_code(name))
         spec = LayeredSpec(algo="OMS", iters=10)
-        print(f"[throughput] {name} B={B}: tile "
+        print(f"[throughput] {name} B={B}: "
               f"{S.pick_tile(code, B, sm_count)}")
         s_times[name] = _throughput(
             S.make_streamed_decoder(code, spec),
@@ -540,7 +563,8 @@ def main() -> int:
     # 16. the bound of every timed decode (``bench/roofline.py``): against
     # the data sheet's rates and against the probed ones
     bounds = {}
-    timed = ([("layered_minsum", "2304x1152", 8192, (t_k, t_p))]
+    timed = ([("layered_minsum", n, B, k_times[n]) for n, B in
+              (("2304x1152", 8192), ("1944x972", 1024))]
              + [("gather_minsum", n, B, g_times[n]) for n, B in
                 (("4000x2000", 4096), ("8000x4000", 2048),
                  ("20000x10000", 1024))]
@@ -565,6 +589,26 @@ def main() -> int:
               f"{tab['t_ops_ms'] / 4:.4f} ms at four times the data sheet's "
               f"int32 rate, {tab['ops'] / rates['alu_int8x4'] * 1e3:.4f} ms at "
               f"the probed int8x4 rate")
+        # the issue floor of the kernel's own SASS: edge updates x its ALU
+        # instructions an edge over the probed ALU-instruction rate
+        if kname == "layered_minsum":
+            sym = sass.layered_symbol(code, K.pick_tile(code, B, sm_count))
+        elif kname == "streamed_minsum":
+            sym = sass.streamed_symbol(effective_code(code),
+                                       S.pick_tile(effective_code(code), B,
+                                                   sm_count))
+        else:
+            sym = (f"kernelILi{G.pick_tile(code, spec10)}ELi{G._dmax(code)}EE",
+                   G._dmax(code))
+        lib = {"layered_minsum": K, "streamed_minsum": S,
+               "gather_minsum": G}[kname].build()["path"]
+        alu_edge = sass.per_edge(lib, *sym)[1]
+        t_issue = tab["edge_updates"] * alu_edge / rates["alu_instructions"]
+        print(f"[issue] {kname} {name} B={B}: {alu_edge:.2f} ALU instructions "
+              f"an edge update in its SASS ({sym[0]}); at the probed "
+              f"{rates['alu_instructions'] / 1e12:.4f} T ALU instructions/s "
+              f"that is {t_issue * 1e3:.4f} ms, the kernel {t * 1e3:.4f} ms "
+              f"({t_issue / t:.1%}) | {smi}")
         print(f"[roofline] {kname} {name} B={B}: {t * 1e3:.4f} ms against a "
               f"bound of {tab['t_roofline_ms']:.4f} ms ({tab['bound']}, data "
               f"sheet), {tab['roofline_frac']:.1%} of it; "

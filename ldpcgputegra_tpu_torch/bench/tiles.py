@@ -1,15 +1,21 @@
-"""Tile sweep of the streamed kernel (``kernels/streamed.py``) on the card.
+"""Variant sweep of the QC kernel (``kernels/layered.py``) and the streamed
+kernel (``kernels/streamed.py``) on the card.
 
-    python -m ldpcgputegra_tpu_torch.bench.tiles [--check] [--iters 10]
+    python -m ldpcgputegra_tpu_torch.bench.tiles [--kernel layered|streamed|both]
+        [--check] [--iters 10]
 
-For each code and batch of the DVB-S2 path (the JAX suite's batches, and
-larger ones) and each tile the kernel builds (``streamed.TILES``, codewords
-per CTA), prints the kernel's ms per decode at OMS, ET off
-(``measure_call``, CUDA events), the card's name and power limit beside
-it.  ``--check`` first holds every tile against the plain version on the
-card (bits and ``iters_used``, ET on).  Each tile is forced by replacing
-``streamed.pick_tile`` for the length of its calls.  ``pick_tile``'s
-policy is read from this table (``PERF.md``).  Needs a CUDA device.
+For each code and batch of a kernel's path and each variant the kernel
+builds for that code, prints the kernel's ms per decode at OMS, ET off
+(``measure_call``, CUDA events), the variant its pick takes marked with a
+``*``, and the card's name and power limit.  The QC kernel's variants are
+its tiles (codewords per CTA; four a thread at DMAX 8); the streamed
+kernel's are
+(APP placement, tile, lanes per check).  ``--check`` first holds every
+variant against the plain version on the card (bits and ``iters_used``,
+ET on, a ragged batch).  Each variant is forced by replacing the module's
+``pick_tile`` for the length of its calls (``forced_layered``,
+``forced_streamed``).  The picks' policies are read from these tables
+(``PERF.md`` §6).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,13 +31,19 @@ import torch
 
 from ..codes.registry import load_code
 from ..decoder import effective_code
-from ..kernels import streamed
+from ..kernels import _lib, layered, streamed
 from ..ops.layered import LayeredSpec, make_layered_decoder
 from .harness import measure_call
 
+LAYERED_SHAPES = [("2304x1152", 1024), ("2304x1152", 8192),
+                  ("1944x972", 1024), ("1944x972", 8192)]
 SHAPES = [("64800x32400", 512), ("64800x32400", 2048), ("16200x7560", 1024),
           ("64800x6480-dvbs2", 256), ("64800x6480-dvbs2", 1024),
           ("synthqc-256x128x6-z1024", 256)]
+LAYERED_CHECKS = [("576x288", 300, 2.5), ("1944x972", 1000, 2.0),
+                  ("155x93", 77, 3.0)]
+CHECKS = [("16200x10800", 300, 3.0), ("64800x32400", 256, 1.5),
+          ("64800x6480-dvbs2", 64, 7.0), ("synthqc-256x128x6-z1024", 64, 2.5)]
 
 
 def llrs(code, B: int, snr_db: float, seed: int) -> torch.Tensor:
@@ -43,20 +55,88 @@ def llrs(code, B: int, snr_db: float, seed: int) -> torch.Tensor:
     return torch.from_numpy(np.clip(8.0 * y, -31, 31).astype(np.int8))
 
 
+def layered_variants(code) -> list[int]:
+    """The QC kernel's tiles whose APP fits shared memory for this code."""
+    return [t for t in layered.TILES
+            if layered.smem_bytes(code, t) <= _lib.SMEM_MAX]
+
+
 @contextlib.contextmanager
-def forced_tile(tile: int):
-    """Within the block, every streamed decoder launches ``tile``
-    codewords per CTA."""
+def forced_layered(tile: int):
+    """Within the block, every QC decoder launches ``tile`` codewords per
+    CTA."""
+    picked = layered.pick_tile
+    layered.pick_tile = lambda *args, **kwargs: tile
+    try:
+        yield
+    finally:
+        layered.pick_tile = picked
+
+
+@contextlib.contextmanager
+def forced_streamed(variant: streamed.Variant):
+    """Within the block, every streamed decoder launches ``variant``."""
     picked = streamed.pick_tile
-    streamed.pick_tile = lambda code, B, sms=None: tile
+    streamed.pick_tile = lambda *args, **kwargs: variant
     try:
         yield
     finally:
         streamed.pick_tile = picked
 
 
+def _label(v) -> str:
+    if isinstance(v, streamed.Variant):
+        return f"{v.placement}/{v.tile}/k{v.k}"
+    return str(v)
+
+
+def _cases(kernel: str, check: bool):
+    """(code, B, snr, decoder maker, variants, forcing, the pick at B)."""
+    shapes = {"layered": LAYERED_CHECKS if check else LAYERED_SHAPES,
+              "streamed": CHECKS if check else SHAPES}[kernel]
+    for row in shapes:
+        name, B = row[0], row[1]
+        snr = row[2] if check else 2.0
+        code = effective_code(load_code(name))
+        sms = _lib.sm_count(torch.device("cuda", 0))
+        if kernel == "layered":
+            yield (code, B, snr, layered.make_cuda_decoder,
+                   layered_variants(code), forced_layered,
+                   layered.pick_tile(code, B, sms))
+        else:
+            yield (code, B, snr, streamed.make_streamed_decoder,
+                   streamed.variants(code), forced_streamed,
+                   streamed.pick_tile(code, B, sms))
+
+
+def check(kernel: str, dev, log=print) -> int:
+    """Hold every variant of ``kernel`` ("layered" or "streamed") against
+    the plain version on the card at the check shapes (bits and
+    ``iters_used``, ET on, ragged batches); returns the largest |bit
+    difference| (0), raises on a disagreement."""
+    for code, B, snr, make, vs, force, _ in _cases(kernel, True):
+        spec = LayeredSpec(iters=6, early_term=True)
+        llr = llrs(code, B, snr, seed=1).to(dev)
+        pb, pi = make_layered_decoder(code, spec, dev)(llr)
+        dec = make(code, spec)
+        for v in vs:
+            with force(v):
+                kb, ki = dec(llr)
+            torch.cuda.synchronize()
+            ok = torch.equal(kb, pb) and int(ki) == int(pi)
+            log(f"[check] {kernel} {code.name} B={B} {_label(v)}: "
+                f"{'bit-exact' if ok else 'DIFFERS'} iters {int(ki)} "
+                f"(plain {int(pi)})")
+            if not ok:
+                raise AssertionError(f"{kernel} {_label(v)} disagrees with "
+                                     f"the plain version on {code.name}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("layered", "streamed", "both"),
+                    default="both")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args(argv)
@@ -68,41 +148,28 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"[tiles] {smi}")
-    info = streamed.build()
-    print(f"[tiles] built in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[tiles] {line.strip()}")
-    if args.check:
-        for name, B, snr in (("16200x10800", 300, 3.0),
-                             ("64800x32400", 256, 1.5),
-                             ("synthqc-256x128x6-z1024", 64, 2.5)):
-            code = effective_code(load_code(name))
-            spec = LayeredSpec(iters=6, early_term=True)
-            llr = llrs(code, B, snr, seed=1).to(dev)
-            pb, pi = make_layered_decoder(code, spec, dev)(llr)
-            dec = streamed.make_streamed_decoder(code, spec)
-            for tile in streamed.TILES:
-                with forced_tile(tile):
-                    kb, ki = dec(llr)
-                torch.cuda.synchronize()
-                ok = torch.equal(kb, pb) and int(ki) == int(pi)
-                print(f"[check] {name} B={B} tile {tile}: "
-                      f"{'bit-exact' if ok else 'DIFFERS'} iters {int(ki)}")
-                if not ok:
-                    return 1
+    kernels = ("layered", "streamed") if args.kernel == "both" else (
+        args.kernel,)
+    for kernel in kernels:
+        info = (layered if kernel == "layered" else streamed).build()
+        print(f"[tiles] {kernel} built in {info['seconds']:.2f} s")
+    for kernel in kernels if args.check else ():
+        check(kernel, dev)
     spec = LayeredSpec(algo="OMS", iters=args.iters)
-    for name, B in SHAPES:
-        code = effective_code(load_code(name))
-        dec = streamed.make_streamed_decoder(code, spec)
-        inputs = [llrs(code, B, 2.0, seed=s).to(dev) for s in range(2)]
-        row = []
-        for tile in streamed.TILES:
-            with forced_tile(tile):
-                t = measure_call(dec, inputs, k_small=2, k_large=6, repeats=2)
-            row.append(f"{tile}: {t * 1e3:.4f}")
-        print(f"[tiles] {name} B={B} OMS {args.iters} ET off, ms by tile: "
-              + ", ".join(row) + f" | {smi}", flush=True)
+    for kernel in kernels:
+        for code, B, _, make, vs, force, pick in _cases(kernel, False):
+            dec = make(code, spec)
+            inputs = [llrs(code, B, 2.0, seed=s).to(dev) for s in range(2)]
+            row = []
+            for v in vs:
+                with force(v):
+                    t = measure_call(dec, inputs, k_small=2, k_large=6,
+                                     repeats=2)
+                row.append(f"{_label(v)}{'*' if v == pick else ''}: "
+                           f"{t * 1e3:.4f}")
+            print(f"[tiles] {kernel} {code.name} B={B} OMS {args.iters} ET "
+                  "off, ms by variant (* the pick): " + ", ".join(row)
+                  + f" | {smi}", flush=True)
     return 0
 
 

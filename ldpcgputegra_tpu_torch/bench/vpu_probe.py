@@ -33,8 +33,6 @@ from __future__ import annotations
 import ctypes
 import os
 import re
-import shutil
-import subprocess
 from typing import Optional
 
 import numpy as np
@@ -448,13 +446,9 @@ def sass_per_rep(kind: str, chains: int) -> tuple[float, float]:
     ``cuobjdump``; raises where it cannot."""
     global _sass_text
     if _sass_text is None:
-        tool = shutil.which("cuobjdump") or os.path.join(
-            os.path.dirname(_lib._nvcc()), "cuobjdump")
-        res = subprocess.run([tool, "-sass", build()["path"]],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"cuobjdump failed: {res.stderr}")
-        _sass_text = res.stdout
+        from .sass import sass_text
+
+        _sass_text = sass_text(build()["path"])
     loop = parse_sass_loop(_sass_text, f"probe_{kind}_kernelILi{chains}E")
     if loop is None:
         raise RuntimeError(f"no loop in the SASS of probe_{kind} x{chains}")

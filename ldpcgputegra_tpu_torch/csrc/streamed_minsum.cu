@@ -1,6 +1,6 @@
-// Layered min-sum decoding of codes whose APP array does not fit shared
-// memory, on Hopper (sm_90a): the DVB-S2 path (the Z=360 QC views of the
-// staircase codes, 16200 and 64800 bits) and synthqc-256x128x6-z1024
+// Layered min-sum decoding of the codes whose APP array outgrows the QC
+// kernel's tiles, on Hopper (sm_90a): the DVB-S2 path (the Z=360 QC views of
+// the staircase codes, 16200 and 64800 bits) and synthqc-256x128x6-z1024
 // (262144 bits).
 //
 // Replaces ldpcgputegra_tpu/kernels/pallas_streamed.py::_build_streamed_kernel
@@ -14,51 +14,65 @@
 // through ctypes (ldpcgputegra_tpu_torch/kernels/streamed.py), on PyTorch's
 // current stream.
 //
-// Why the APP leaves shared memory: a block can use 227 KB, and one
-// codeword's APP is 15.8 KB at 16200, 63.3 KB at 64800 and 256 KB at
-// synthqc, so the tiles of the other two kernels (32 or 8 codewords) do not
-// fit.  Here the APP is a scratch buffer in device memory that the wrapper
-// allocates, [ceil(B / TB)][N][TB] int8 with the codeword fastest (33 MB at
-// 64800 and B = 512, under the 50 MB L2).  It is written during the launch,
-// so it is read through a plain pointer, never __ldg or a const __restrict__
-// one (the non-coherent path could return stale bytes).  One CTA owns its
-// codewords' APP, so a __syncthreads() between layers is all the layered
-// order needs: it makes the CTA's global writes visible to the CTA.
+// What bounds it on this card: the latency of each check lane's accesses,
+// not its 21 integer operations an edge update.  A CTA walks a layer's
+// checks on its check lanes, one round after another, a __syncthreads()
+// ends every layer, and a round waits for its loads.  The first port kept
+// the APP in device memory for every code, so a round waited for two
+// dependent device-memory trips (the VN ids and messages, then the APP
+// bytes at those ids), and on 64800x6480-dvbs2 (about 90 committed checks
+// of degree 30 a layer) a third of the lanes worked, each walking 30 edges.
+// The design:
 //
-// Mapping (the gather kernel's, gather_minsum.cu): one CTA of 512 threads
-// decodes a tile of TB codewords (a template parameter); thread t works on
-// codeword t % TB and on checks t / TB, t / TB + 512 / TB, ... of the
-// current layer, walking per-edge tables (codes/convert.py::edge_tables,
-// int32 VN ids): a sub-pass layer is just its committed checks, and the
-// deficient-circulant edge is a VN id of -1 whose contribution is -sat_var
-// and which writes nothing, so there is no QC special case, and any
+//  * APP placement, a template parameter.  Where tile x N bytes fit the
+//    232,448 B a block may use, the APP lives in shared memory, [N][TB]
+//    int8: 64800 bits at tiles 1 and 2, 16200 up to 8.  Otherwise (synthqc,
+//    256 KB a codeword) it is a scratch buffer in device memory that the
+//    wrapper allocates, [ceil(B / TB)][N][TB] int8 with the codeword
+//    fastest; it is written during the launch, so it is read through a
+//    plain pointer, never __ldg (the non-coherent path could return stale
+//    bytes).  Either way one CTA owns its codewords' APP, so a
+//    __syncthreads() between layers is all the layered order needs.
+//  * K lanes a check (1, 2 or 4, a template parameter), for layers with
+//    fewer checks than lanes: lane s of a check walks its edges s, s + K,
+//    ..., and the K partial results merge by warp shuffles (min1 = min of
+//    the min1s, min2 = min(min of the min2s, max of the min1s), parity by
+//    XOR), which is bit-exact: the running two-min yields the smallest and
+//    second-smallest magnitude in any order, and a message compares its
+//    own magnitude with min1.  A lane holds DMAX / K contributions.
+//  * All of a check's loads issued before any is used: the VN ids and
+//    messages, then the APP bytes, in loops of loads alone.
+//  * The contributions are unrolled to DMAX (8, 16 or 32, a template
+//    parameter, the smallest that holds the code's degrees), so they stay
+//    in registers.
+// The wrapper picks (placement, tile, K) from the code, the batch and the
+// card's SM count (kernels/streamed.py::pick_tile), charging the shared
+// memory, registers and CTAs an SM of the variant it launches.
+//
+// Mapping: one CTA of 512 threads decodes a tile of TB codewords.  In a
+// warp the codeword is the fastest index (TB of them), then the check
+// (32 / (TB K) of them), then the check's lane (K); check lanes walk
+// checks g, g + 512 / (TB K), ... of the current layer, warp-uniformly
+// where K > 1 (the shuffles need the whole warp) or the APP is in shared
+// memory.  The per-edge tables
+// (codes/convert.py::edge_tables, int32 VN ids, degree-major within a
+// layer) make a sub-pass layer just its committed checks, and the
+// deficient-circulant edge a VN id of -1 whose contribution is -sat_var and
+// which writes nothing, so there is no QC special case, and any
 // conflict-free layers decode.  The checks of a layer touch
 // pairwise-disjoint VNs, so they run in parallel with a result
 // bit-identical to the reference's sequential check loop.  The VN ids of a
-// QC block-row are consecutive in z, so there the 512 / TB checks and TB
-// codewords of one warp-wide APP or message access are 32 contiguous bytes.
-// The contribution array is unrolled to DMAX (8, 16 or 32, a template
-// parameter), the smallest that holds the code's degrees (30 at
-// 64800x6480-dvbs2).
+// QC block-row are consecutive in the check, so there one warp-wide APP or
+// message access is a few runs of contiguous bytes.
 //
-// col_perm is applied here, as the LLRs are loaded and the bits stored
-// (app[n] = llr[perm[n]], bits[perm[n]] = app[n] > 0), so the view costs no
-// extra pass over the batch.
+// col_perm is applied as the LLRs are loaded and the bits stored (app[n] =
+// llr[perm[n]], bits[perm[n]] = app[n] > 0), so the view costs no extra
+// pass over the batch.
 //
-// What bounds it: each edge of each codeword costs the 21 integer operations
-// of a min-sum edge update (kernels/_lib.py::OPS_PER_EDGE), an int8 APP read
-// and write and an int8 message read and write in device memory per
-// iteration.  At 64800x32400, B = 512, 10 iterations that is 1.16e9 edge
-// updates, 1.5 ms of int32 issue on the H100 against 0.02 ms for the LLRs
-// and bits.  In practice each lane waits on device memory for every check
-// it walks, one after the other (PERF.md), so the design issues all of a
-// check's loads before it uses any, and the tile (kernels/streamed.py::
-// pick_tile) is the narrowest whose CTAs all fit the card at once: the most
-// check lanes.
-//
-// Offsets: a CTA's APP and message base pointers are size_t (E x B reaches
-// 8e8 at 64800x6480-dvbs2, B = 4096); offsets inside one tile are int, and
-// the launch refuses n_edges * tile or N * tile of 2^31 or more.
+// Offsets: a CTA's message (and device-memory APP) base pointers are size_t
+// (E x B reaches 8e8 at 64800x6480-dvbs2, B = 4096); offsets inside one
+// tile are int, and the launch refuses n_edges * tile or N * tile of 2^31
+// or more.
 //
 // Early termination: as in the other two kernels, a codeword whose parity is
 // zero over a whole iteration is frozen (K2's snapshot: same bits), the CTA
@@ -75,12 +89,13 @@ namespace {
 
 using namespace minsum;
 
-constexpr int NTHREADS = 512;  // threads per CTA
+constexpr int NTHREADS = 512;  // threads per CTA (mirrored in kernels/streamed.py)
+constexpr int NO_MIN = 1 << 20;  // a min1 above every magnitude
 
 struct Params {
   const int8_t* llr;   // [B, N] frame-major
   uint8_t* bits;       // [B, N] frame-major
-  int8_t* app;         // [ceil(B / TB)][N][TB] scratch, written in the launch
+  int8_t* app;         // [ceil(B / TB)][N][TB] scratch, or null (shared memory)
   int8_t* msgs;        // [ceil(B / TB)][E][TB] scratch
   int* iters_out;      // scalar
   const int* row_ptr;  // [L + 1] first edge slot of each layer
@@ -93,15 +108,32 @@ struct Params {
   CnSpec cn;
 };
 
-// at DMAX = 8 two CTAs share an SM (64 registers a thread; pick_tile counts
-// on it)
-template <int TB, int DMAX>
-__global__ void __launch_bounds__(NTHREADS, DMAX == 8 ? 2 : 1)
+// mirrored in kernels/streamed.py::smem_bytes
+__host__ __device__ inline size_t app_bytes(int N, int tb) {
+  return (static_cast<size_t>(N) * tb + 15) & ~static_cast<size_t>(15);
+}
+
+// two CTAs an SM where a lane's DMAX / K contributions allow it (64
+// registers a thread); kernels/streamed.py::ctas_per_sm counts on it
+template <int TB, int DMAX, int K, bool SMEM_APP>
+__global__ void __launch_bounds__(NTHREADS, DMAX / K <= 8 ? 2 : 1)
     streamed_minsum_kernel(Params p) {
-  constexpr int TY = NTHREADS / TB;  // check lanes
+  constexpr int D = DMAX / K;             // edges a lane holds
+  constexpr int GW = 32 / (TB * K);       // checks a warp walks at once
+  constexpr int TY = NTHREADS / (TB * K); // checks a CTA walks at once
+  static_assert(TB * K <= 32, "a check's lanes and codewords span one warp");
+  // warp-uniform rounds where the lanes of a check shuffle, and where the
+  // APP is in shared memory (measured faster there, PERF.md); else a lane
+  // walks its own checks, as at K = 1 with the APP in device memory
+  constexpr bool UNIFORM = K > 1 || SMEM_APP;
+  extern __shared__ __align__(16) unsigned char smem[];  // [N][TB] if SMEM_APP
   __shared__ int s_unsat[TB];
 
-  const int tid = threadIdx.x, tx = tid % TB, ty = tid / TB;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int tx = lane % TB;             // codeword
+  const int g0 = (tid >> 5) * GW;       // the warp's first check
+  const int gw = (lane / TB) % GW;      // this thread's check in the warp
+  const int sub = K > 1 ? lane / (TB * GW) : 0;  // its lane of the check
   const int tile0 = blockIdx.x * TB;
   const int nb = min(TB, p.B - tile0);  // codewords in this tile
   const int N = p.N;
@@ -109,7 +141,9 @@ __global__ void __launch_bounds__(NTHREADS, DMAX == 8 ? 2 : 1)
   const int sv = cn.sat_var;
   // this CTA's APP and messages; offsets within them fit an int (checked
   // at launch)
-  int8_t* app = p.app + static_cast<size_t>(blockIdx.x) * N * TB;
+  int8_t* app;
+  if constexpr (SMEM_APP) app = reinterpret_cast<int8_t*>(smem);
+  else app = p.app + static_cast<size_t>(blockIdx.x) * N * TB;
   int8_t* at = app + tx;
   int8_t* mt = p.msgs + static_cast<size_t>(blockIdx.x) * p.n_edges * TB + tx;
 
@@ -127,55 +161,73 @@ __global__ void __launch_bounds__(NTHREADS, DMAX == 8 ? 2 : 1)
   for (int it = 0; it < p.iters; ++it) {
     if (p.early_term) {
       if (!__syncthreads_or(active)) break;  // the whole tile converged
-      if (ty == 0) s_unsat[tx] = 0;  // visible after the first layer's barrier
+      if (tid < TB) s_unsat[tid] = 0;  // visible after the first layer's barrier
     }
     iters_run = it + 1;
     int unsat = 0;
     for (int l = 0; l < p.n_layers; ++l) {
       const int e0 = __ldg(p.row_ptr + l);
       const int G = __ldg(p.n_checks + l), deg = __ldg(p.deg + l);
-      if (active) {
-        for (int g = ty; g < G; g += TY) {
-          // Every load of a check is issued before any is used: the VN ids
-          // and messages, then the APP bytes, in loops of loads alone.  A
-          // load whose value a branch or a later address needs stalls the
-          // warp until it lands, so loads mixed with their uses cost a
-          // memory round trip per edge; here a check waits for two.  A
-          // pinned edge (v < 0) reads VN 0 and its message slot and uses
-          // neither: its contribution is -sat_var.
-          int v[DMAX], a[DMAX], c[DMAX];
+      // UNIFORM: every lane of a warp runs the same rounds, idle where its
+      // check is past the layer's or its codeword is frozen; else a lane
+      // walks its own checks, and a frozen codeword's lanes skip the layer
+      const int first = UNIFORM ? g0 : (active ? tid / TB : G);
+      for (int gb = first; gb < G; gb += TY) {
+        const int g = UNIFORM ? gb + gw : gb;
+        const bool live = !UNIFORM || (active && g < G);
+        // Every load of a check is issued before any is used: the VN ids
+        // and messages, then the APP bytes, in loops of loads alone.  A
+        // load whose value a branch or a later address needs stalls the
+        // warp until it lands, so loads mixed with their uses cost a
+        // memory round trip per edge; here a check waits for two (one
+        // where the APP is in shared memory).  A pinned edge (v < 0)
+        // reads VN 0 and its message slot and uses neither: its
+        // contribution is -sat_var.
+        int v[D], a[D], c[D];
 #pragma unroll
-          for (int j = 0; j < DMAX; ++j) {
-            if (j < deg) {
-              const int slot = e0 + j * G + g;
-              v[j] = __ldg(p.vn + slot);
-              c[j] = it ? mt[slot * TB] : 0;
-            }
+        for (int q = 0; q < D; ++q) {
+          const int j = q * K + sub;
+          if (live && j < deg) {
+            const int slot = e0 + j * G + g;
+            v[q] = __ldg(p.vn + slot);
+            c[q] = it ? mt[slot * TB] : 0;
           }
-#pragma unroll
-          for (int j = 0; j < DMAX; ++j)
-            if (j < deg) a[j] = at[max(v[j], 0) * TB];
-          int min1 = 0, min2 = sv + 1, parity = 0;
-#pragma unroll
-          for (int j = 0; j < DMAX; ++j) {
-            if (j < deg) {
-              c[j] = v[j] < 0 ? -sv : clampi(a[j] - c[j], sv);
-              two_min(j, cn_abs(c[j], cn), min1, min2);
-              parity ^= (c[j] > 0);
-            }
-          }
-          int f1, f2;
-          cn_f(min1, min2, cn, f1, f2);
-#pragma unroll
-          for (int j = 0; j < DMAX; ++j) {
-            if (j < deg && v[j] >= 0) {
-              const int m = cn_msg(c[j], parity, min1, f1, f2, cn);
-              mt[(e0 + j * G + g) * TB] = static_cast<int8_t>(m);
-              at[v[j] * TB] = static_cast<int8_t>(clampi(c[j] + m, sv));
-            }
-          }
-          unsat |= parity;
         }
+#pragma unroll
+        for (int q = 0; q < D; ++q)
+          if (live && q * K + sub < deg) a[q] = at[max(v[q], 0) * TB];
+        int min1 = NO_MIN, min2 = sv + 1, parity = 0;
+#pragma unroll
+        for (int q = 0; q < D; ++q) {
+          if (live && q * K + sub < deg) {
+            c[q] = v[q] < 0 ? -sv : clampi(a[q] - c[q], sv);
+            two_min(q, cn_abs(c[q], cn), min1, min2);
+            parity ^= (c[q] > 0);
+          }
+        }
+        if constexpr (K > 1) {
+          // merge the check's K lanes: XOR across the lane bits of `sub`
+#pragma unroll
+          for (int o = 16; o >= 32 / K; o >>= 1) {
+            const int m1 = __shfl_xor_sync(0xffffffffu, min1, o);
+            const int m2 = __shfl_xor_sync(0xffffffffu, min2, o);
+            parity ^= __shfl_xor_sync(0xffffffffu, parity, o);
+            min2 = min(min(min2, m2), max(min1, m1));
+            min1 = min(min1, m1);
+          }
+        }
+        int f1, f2;
+        cn_f(min1, min2, cn, f1, f2);
+#pragma unroll
+        for (int q = 0; q < D; ++q) {
+          const int j = q * K + sub;
+          if (live && j < deg && v[q] >= 0) {
+            const int m = cn_msg(c[q], parity, min1, f1, f2, cn);
+            mt[(e0 + j * G + g) * TB] = static_cast<int8_t>(m);
+            at[v[q] * TB] = static_cast<int8_t>(clampi(c[q] + m, sv));
+          }
+        }
+        if (live) unsat |= parity;
       }
       __syncthreads();
     }
@@ -194,39 +246,60 @@ __global__ void __launch_bounds__(NTHREADS, DMAX == 8 ? 2 : 1)
   }
 }
 
-template <int TB, int DMAX>
+template <int TB, int DMAX, int K, bool SMEM_APP>
 cudaError_t launch(const Params& p, cudaStream_t st) {
+  const size_t smem = SMEM_APP ? app_bytes(p.N, TB) : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      streamed_minsum_kernel<TB, DMAX, K, SMEM_APP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
   const dim3 grid((p.B + TB - 1) / TB), block(NTHREADS);
-  streamed_minsum_kernel<TB, DMAX><<<grid, block, 0, st>>>(p);
+  streamed_minsum_kernel<TB, DMAX, K, SMEM_APP><<<grid, block, smem, st>>>(p);
   return cudaGetLastError();
 }
 
-template <int TB>
-cudaError_t launch_tile(const Params& p, int dmax, cudaStream_t st) {
-  switch (dmax) {
-    case 8: return launch<TB, 8>(p, st);
-    case 16: return launch<TB, 16>(p, st);
-    case 32: return launch<TB, 32>(p, st);
-    default: return cudaErrorInvalidValue;
+// the variants that kernels/streamed.py::VARIANTS lists: K > 1 only at
+// DMAX 16 and 32 and tiles up to 8; shared memory only at tiles up to 8
+template <int TB, bool SMEM_APP>
+cudaError_t launch_tile(const Params& p, int dmax, int k, cudaStream_t st) {
+  if (k == 1) {
+    switch (dmax) {
+      case 8: return launch<TB, 8, 1, SMEM_APP>(p, st);
+      case 16: return launch<TB, 16, 1, SMEM_APP>(p, st);
+      case 32: return launch<TB, 32, 1, SMEM_APP>(p, st);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  if constexpr (TB <= 8) {
+    switch (dmax * 8 + k) {
+      case 16 * 8 + 2: return launch<TB, 16, 2, SMEM_APP>(p, st);
+      case 16 * 8 + 4: return launch<TB, 16, 4, SMEM_APP>(p, st);
+      case 32 * 8 + 2: return launch<TB, 32, 2, SMEM_APP>(p, st);
+      case 32 * 8 + 4: return launch<TB, 32, 4, SMEM_APP>(p, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch one decode on `stream` with a tile of `tile` codewords per CTA and
-// contribution arrays of `dmax` (>= every layer's degree); `app` and `msgs`
-// are scratch of ceil(B / tile) * N * tile and ceil(B / tile) * n_edges *
-// tile bytes; `perm` may be null.  Returns a cudaError_t (0 on success).
+// Launch one decode on `stream` with a tile of `tile` codewords per CTA,
+// `k` lanes a check, contribution arrays of `dmax` (>= every layer's
+// degree) and the APP in shared memory (`smem_app` 1) or in `app`, scratch
+// of ceil(B / tile) * N * tile bytes; `msgs` is scratch of ceil(B / tile) *
+// n_edges * tile bytes; `perm` may be null.  Returns a cudaError_t (0 on
+// success).
 int streamed_minsum_launch(const void* llr, void* bits, void* app, void* msgs,
                            void* iters_out, const void* row_ptr,
                            const void* n_checks, const void* deg,
                            const void* vn, const void* perm, int n_layers,
                            long long n_edges, int N, int B, int tile, int dmax,
-                           int algo, int minclamp_pre, int iters, int early_term,
-                           int offset, int nms_f, int nms_f2, int sat_var,
-                           int sat_msg, void* stream) {
+                           int k, int smem_app, int algo, int minclamp_pre,
+                           int iters, int early_term, int offset, int nms_f,
+                           int nms_f2, int sat_var, int sat_msg, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p{static_cast<const int8_t*>(llr), static_cast<uint8_t*>(bits),
            static_cast<int8_t*>(app), static_cast<int8_t*>(msgs),
@@ -237,17 +310,27 @@ int streamed_minsum_launch(const void* llr, void* bits, void* app, void* msgs,
            CnSpec{algo, minclamp_pre, offset, nms_f, nms_f2, sat_var, sat_msg}};
   if (B <= 0 || N <= 0 || n_layers <= 0 || n_edges <= 0 ||
       n_edges * tile >= (1LL << 31) ||
-      static_cast<long long>(N) * tile >= (1LL << 31))
+      static_cast<long long>(N) * tile >= (1LL << 31) ||
+      (!smem_app && app == nullptr))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(iters_out, 0, sizeof(int), st);
   if (err != cudaSuccess) return err;
+  if (smem_app) {
+    switch (tile) {
+      case 8: return launch_tile<8, true>(p, dmax, k, st);
+      case 4: return launch_tile<4, true>(p, dmax, k, st);
+      case 2: return launch_tile<2, true>(p, dmax, k, st);
+      case 1: return launch_tile<1, true>(p, dmax, k, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (tile) {
-    case 32: return launch_tile<32>(p, dmax, st);
-    case 16: return launch_tile<16>(p, dmax, st);
-    case 8: return launch_tile<8>(p, dmax, st);
-    case 4: return launch_tile<4>(p, dmax, st);
-    case 2: return launch_tile<2>(p, dmax, st);
-    case 1: return launch_tile<1>(p, dmax, st);
+    case 32: return launch_tile<32, false>(p, dmax, k, st);
+    case 16: return launch_tile<16, false>(p, dmax, k, st);
+    case 8: return launch_tile<8, false>(p, dmax, k, st);
+    case 4: return launch_tile<4, false>(p, dmax, k, st);
+    case 2: return launch_tile<2, false>(p, dmax, k, st);
+    case 1: return launch_tile<1, false>(p, dmax, k, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -4,14 +4,14 @@
 Backends:
 
 * ``cuda`` — the hand-written QC kernel (``kernels/layered.py``): all-QC
-  codes whose block-rows the schedule keeps and whose 32-codeword APP tile
+  codes whose block-rows the schedule keeps and whose 4-codeword APP tile
   fits shared memory;
 * ``cuda-gather`` — the hand-written gather kernel (``kernels/gather.py``):
   the layers of any schedule, so the non-QC codes (4000x2000 ...);
-* ``cuda-streamed`` — the hand-written kernel with the APP in device
-  memory (``kernels/streamed.py``): the layers of any schedule, QC views
-  included, so the codes beyond shared memory (the QC views of the DVB-S2
-  family, synthqc);
+* ``cuda-streamed`` — the hand-written kernel over committed edges
+  (``kernels/streamed.py``), the APP in shared memory where a tile of it
+  fits, else in device memory: the layers of any schedule, QC views
+  included, so the QC views of the DVB-S2 family and synthqc;
 * ``torch`` — the plain PyTorch layered decoder (``ops/layered.py``);
 * ``auto`` — on a CUDA device ``cuda`` where the QC kernel takes the code,
   else ``cuda-gather`` where the gather kernel does, else

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper — the hot decode path: the QC
 kernel (``layered``), the gather kernel for any layers (``gather``) and the
-kernel with the APP in device memory for QC codes beyond shared memory
-(``streamed``)."""
+kernel over committed edges for the QC views of the DVB-S2 codes and
+synthqc (``streamed``)."""
 
 from .gather import make_gather_decoder
 from .layered import cuda_supported, make_cuda_decoder

@@ -23,7 +23,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SMEM_MAX = 232448  # dynamic shared memory a block can use on Hopper
-ALGO = {"MS": 0, "OMS": 1, "NMS": 2, "2NMS": 3}  # csrc/minsum_common.cuh
+SM_SMEM = 233472  # shared memory of one SM, of which each CTA holds
+CTA_SMEM_RESERVED = 1024  # this much more than it asks for
+SM_THREADS = 2048  # resident threads an SM
+SMS_H100 = 132  # an H100 SXM's SMs: the picks' count where no card is read
+ALGO ={"MS": 0, "OMS": 1, "NMS": 2, "2NMS": 3}  # csrc/minsum_common.cuh
 
 # Integer operations that one min-sum edge update needs, whichever kernel
 # runs it (OMS with minclamp 'pre', csrc/minsum_common.cuh): the
@@ -33,6 +37,19 @@ ALGO = {"MS": 0, "OMS": 1, "NMS": 2, "2NMS": 3}  # csrc/minsum_common.cuh
 # Addressing, loads and stores are not counted, nor the per-check offset.
 # chip_smoke.py's bound divides edge updates x this by the int32 rate.
 OPS_PER_EDGE = 21
+
+
+def ctas_per_sm(threads: int, smem: int, reg_ctas: int) -> int:
+    """CTAs of ``threads`` threads and ``smem`` bytes of shared memory that
+    one SM holds at once, where its registers allow ``reg_ctas`` (the
+    kernel's launch bounds)."""
+    return max(0, min(SM_THREADS // threads, reg_ctas,
+                      SM_SMEM // (smem + CTA_SMEM_RESERVED)))
+
+
+def sm_count(device) -> int:
+    """The card's SM count."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _nvcc() -> str:

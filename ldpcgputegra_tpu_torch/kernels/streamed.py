@@ -1,19 +1,22 @@
 """Wrapper of the hand-written CUDA streamed min-sum kernel
-(``csrc/streamed_minsum.cu``): layered min-sum of codes whose APP array
-does not fit shared memory, the decode path of the DVB-S2 family (the
-Z=360 QC views of the staircase codes) and of synthqc-256x128x6-z1024.
+(``csrc/streamed_minsum.cu``): layered min-sum over committed edges, the
+decode path of the DVB-S2 family (the Z=360 QC views of the staircase
+codes) and of synthqc-256x128x6-z1024.
 
 Replaces ``ldpcgputegra_tpu/kernels/pallas_streamed.py::
 _build_streamed_kernel`` (K2, ``REPLACES``): one launch runs the whole
 decode.  K2 keeps the APP on chip and streams the messages; on the card
-neither fits a block's shared memory at these sizes, so the APP and the
-messages are scratch buffers in device memory that this wrapper allocates
-(``[ceil(B / tile)][N][tile]`` and ``[ceil(B / tile)][E][tile]`` int8).
+the messages are a scratch buffer in device memory that this wrapper
+allocates (``[ceil(B / tile)][E][tile]`` int8), and the APP lives in
+shared memory where ``tile`` codewords of it fit (``[N][tile]`` int8: up to
+2 codewords of 64800 bits, 8 of 16200), else in a device-memory scratch
+buffer (``[ceil(B / tile)][N][tile]``, synthqc).
 
-What bounds it on the card: the latency of each check lane's APP and
-message accesses in device memory, mostly served by the L2 (``PERF.md``
-§6); ``pick_tile`` picks the codewords per CTA for check lanes and CTAs in
-flight.
+What bounds it on the card: the latency of each check lane's accesses,
+one round of a layer's checks after another.  ``pick_tile`` picks the
+variant, (APP placement, codewords per CTA, lanes per check), from the
+code, the batch and the card's SM count; ``smem_bytes`` and
+``ctas_per_sm`` charge the variant it launches.
 
 The kernel is compiled at first use (``kernels/_lib.py``) and loaded with
 ctypes.  Importing this module needs neither nvcc nor CUDA.  On a CPU
@@ -27,17 +30,19 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from ..codes.code import LdpcCode
+from ..codes.code import LdpcCode, committed_edges
 from ..codes.convert import edge_tables
+from ..codes.schedule import build_layers
 from ..ops.layered import LayeredSpec, make_layered_decoder, unsupported_reason
 from . import _lib
 
 __all__ = ["make_streamed_decoder", "kernel_unsupported_reason", "pick_tile",
-           "build", "launches", "SOURCE", "REPLACES"]
+           "Variant", "variants", "smem_bytes", "ctas_per_sm",
+           "layer_shapes", "build", "launches", "SOURCE", "REPLACES"]
 
 SOURCE = os.path.join(_lib.CSRC, "streamed_minsum.cu")
 BUILD_DIR = _lib.BUILD_DIR
@@ -45,9 +50,21 @@ REPLACES = "ldpcgputegra_tpu/kernels/pallas_streamed.py:73"  # _build_streamed_k
 
 # mirrored from csrc/streamed_minsum.cu
 NTHREADS = 512  # threads per CTA
-TILES = (32, 16, 8, 4, 2, 1)  # codewords per CTA
+TILES = (32, 16, 8, 4, 2, 1)  # codewords per CTA, APP in device memory
+SMEM_TILES = (8, 4, 2, 1)  # codewords per CTA, APP in shared memory
 DMAXES = (8, 16, 32)  # unrolled contribution array lengths
-SMS_H100 = 132  # an H100 SXM's SMs: pick_tile's count where no card is read
+LANES = (1, 2, 4)  # lanes a check; above 1 at DMAX 16 and 32, tiles <= 8
+SMS_H100 = _lib.SMS_H100
+
+# The pick's model of a check round, in units of a round with the APP in
+# shared memory (one device-memory trip, for the VN ids and messages): a
+# round with the APP in device memory, which waits for a second trip and
+# shares the L2 with every APP access, and the issue of one edge on a
+# lane.  Fitted to the variant table of an H100 (bench/tiles.py, PERF.md
+# §6): every value from 2.5 to 6 and from 0.03 to 0.25 picks the fastest
+# variant at all six shapes there.
+ROUND_COST = {"smem": 1.0, "device": 4.0}
+EDGE_COST = 0.125
 
 # Kernel launches in this process: the decoder adds one where it launches
 # the kernel, and nowhere else.
@@ -56,18 +73,13 @@ launches = {"streamed_minsum": 0}
 _lib_handle: Optional[ctypes.CDLL] = None
 
 
-def pick_tile(code: LdpcCode, B: int, sms: int = SMS_H100) -> int:
-    """Codewords per CTA for a batch of ``B`` on a card of ``sms`` SMs: the
-    narrowest tile whose CTAs all fit the card at once, else the widest.
+class Variant(NamedTuple):
+    """One build of the kernel: where the APP lives ("smem" or "device"),
+    codewords per CTA, lanes per check."""
 
-    Each lane walks its checks of a layer one after the other and waits
-    on device memory for each, so more lanes (512 / tile) win until the
-    CTAs no longer fit: two on each SM at DMAX = 8 (64 registers a
-    thread), one at DMAX = 16 and 32 (``csrc/streamed_minsum.cu``'s launch
-    bounds).  The tile against ms on the H100 is ``PERF.md`` §6's table,
-    from ``bench/tiles.py``."""
-    ctas = sms * (2 if _dmax(code) == 8 else 1)
-    return next((t for t in reversed(TILES) if -(-B // t) <= ctas), TILES[0])
+    placement: str
+    tile: int
+    k: int
 
 
 def _dmax(code: LdpcCode) -> int:
@@ -75,6 +87,73 @@ def _dmax(code: LdpcCode) -> int:
     degree; 0 when none does."""
     deg = max(lay.deg for lay in code.layers)
     return next((d for d in DMAXES if d >= deg), 0)
+
+
+def smem_bytes(code: LdpcCode, v: Variant) -> int:
+    """Shared memory of one CTA: the [N][tile] APP where it lives there, and
+    the tile's convergence flags."""
+    app = (code.N * v.tile + 15) & ~15 if v.placement == "smem" else 0
+    return app + 4 * v.tile
+
+
+def ctas_per_sm(code: LdpcCode, v: Variant) -> int:
+    """CTAs of this variant that one SM holds at once: two where a lane's
+    DMAX / k contributions fit 64 registers a thread (the kernel's launch
+    bounds), else one, as its shared memory allows."""
+    return _lib.ctas_per_sm(NTHREADS, smem_bytes(code, v),
+                            2 if _dmax(code) // v.k <= 8 else 1)
+
+
+def variants(code: LdpcCode) -> list[Variant]:
+    """The built variants that take this code: its DMAX, and an APP that
+    fits shared memory where it lives there."""
+    dmax = _dmax(code)
+    out = []
+    for placement, tiles in (("smem", SMEM_TILES), ("device", TILES)):
+        for tile in tiles:
+            for k in LANES:
+                v = Variant(placement, tile, k)
+                if k > 1 and (dmax < 16 or tile > 8):
+                    continue
+                if placement == "smem" and smem_bytes(code, v) > _lib.SMEM_MAX:
+                    continue
+                out.append(v)
+    return out
+
+
+def layer_shapes(code: LdpcCode, schedule: str = "auto") -> list[tuple]:
+    """(committed checks, degree) of each layer of the schedule."""
+    return [committed_edges(lay)[0].shape
+            for lay in build_layers(code, schedule)]
+
+
+def pick_tile(code: LdpcCode, B: int, sms: int = SMS_H100,
+              schedule: str = "auto",
+              shapes: Optional[Sequence[tuple]] = None) -> Variant:
+    """The variant for a batch of ``B`` on a card of ``sms`` SMs.
+
+    A layer of G committed checks of degree d takes ceil(G / lanes)
+    rounds, lanes = 512 / (tile x k), each costing ``ROUND_COST`` of its
+    APP placement and ceil(d / k) x ``EDGE_COST`` of issue; the CTAs run
+    ceil(CTAs / (sms x ctas_per_sm)) after one another.  The pick has the
+    least product, the APP in shared memory and the narrowest tile of
+    equals.
+    The variants against ms on the H100 are ``PERF.md`` §6's table, from
+    ``bench/tiles.py``."""
+    shapes = layer_shapes(code, schedule) if shapes is None else shapes
+    best, best_cost = None, None
+    for v in variants(code):
+        lanes = NTHREADS // (v.tile * v.k)
+        waves = -(-(-(-B // v.tile)) // (sms * ctas_per_sm(code, v)))
+        rounds = sum(-(-G // lanes) * (ROUND_COST[v.placement]
+                                       + EDGE_COST * -(-d // v.k))
+                     for G, d in shapes)
+        cost = waves * rounds
+        if best_cost is None or cost < best_cost or (
+                cost == best_cost and v.placement == best.placement
+                and v.tile < best.tile):
+            best, best_cost = v, cost
+    return best
 
 
 def build() -> dict:
@@ -89,7 +168,7 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(build()["path"])
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.streamed_minsum_launch.argtypes = (
-            [p] * 10 + [i, ctypes.c_longlong] + [i] * 13 + [p])
+            [p] * 10 + [i, ctypes.c_longlong] + [i] * 15 + [p])
         lib.streamed_minsum_launch.restype = i
         lib.streamed_minsum_error_string.argtypes = [i]
         lib.streamed_minsum_error_string.restype = ctypes.c_char_p
@@ -109,8 +188,8 @@ def kernel_unsupported_reason(code: LdpcCode, spec: LayeredSpec):
 
 def make_streamed_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
     """Build ``decode(llr[B, N] int8) -> (bits[B, N] uint8, iters_used)``
-    over the committed edges of ``build_layers(code, spec.schedule)``,
-    ``pick_tile`` codewords per CTA; ``code`` may be a QC view
+    over the committed edges of ``build_layers(code, spec.schedule)``, in
+    the variant ``pick_tile`` picks; ``code`` may be a QC view
     (``col_perm``, deficient circulants, sub-pass layers), whose callers
     keep the base code's column order.
 
@@ -125,6 +204,7 @@ def make_streamed_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
     if why is not None:
         raise NotImplementedError(why)
     dmax = _dmax(code)
+    shapes = layer_shapes(code, spec.schedule)
     # the tables and the SM count, read on the first call per card
     tables: dict[torch.device, tuple[dict, int]] = {}
 
@@ -139,31 +219,31 @@ def make_streamed_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
         lib = _library()
         dev = llr.device
         if dev not in tables:
-            tables[dev] = (edge_tables(code, spec, dev),
-                           torch.cuda.get_device_properties(dev)
-                           .multi_processor_count)
+            tables[dev] = (edge_tables(code, spec, dev), _lib.sm_count(dev))
         t, sms = tables[dev]
         B = llr.shape[0]
-        tile = pick_tile(code, B, sms)
-        n_tiles = -(-B // tile)
+        v = pick_tile(code, B, sms, spec.schedule, shapes)
+        n_tiles = -(-B // v.tile)
         n_edges = int(t["vn"].numel())
         bits = torch.empty((B, code.N), dtype=torch.uint8, device=dev)
-        app = torch.empty((n_tiles, code.N, tile), dtype=torch.int8, device=dev)
-        msgs = torch.empty((n_tiles, n_edges, tile), dtype=torch.int8,
+        app = (None if v.placement == "smem" else torch.empty(
+            (n_tiles, code.N, v.tile), dtype=torch.int8, device=dev))
+        msgs = torch.empty((n_tiles, n_edges, v.tile), dtype=torch.int8,
                            device=dev)
         iters = torch.empty((), dtype=torch.int32, device=dev)
         perm = t["perm"].data_ptr() if t["perm"].numel() else None
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.streamed_minsum_launch(
-                llr.data_ptr(), bits.data_ptr(), app.data_ptr(),
-                msgs.data_ptr(), iters.data_ptr(), t["row_ptr"].data_ptr(),
+                llr.data_ptr(), bits.data_ptr(),
+                None if app is None else app.data_ptr(), msgs.data_ptr(),
+                iters.data_ptr(), t["row_ptr"].data_ptr(),
                 t["n_checks"].data_ptr(), t["deg"].data_ptr(),
                 t["vn"].data_ptr(), perm, int(t["deg"].numel()), n_edges,
-                code.N, B, tile, dmax, _lib.ALGO[spec.algo],
-                int(spec.minclamp == "pre"), spec.iters, int(spec.early_term),
-                spec.offset, spec.nms_f, spec.nms_f2, spec.sat_var,
-                spec.sat_msg, stream,
+                code.N, B, v.tile, dmax, v.k, int(v.placement == "smem"),
+                _lib.ALGO[spec.algo], int(spec.minclamp == "pre"), spec.iters,
+                int(spec.early_term), spec.offset, spec.nms_f, spec.nms_f2,
+                spec.sat_var, spec.sat_msg, stream,
             )
         if err != 0:
             msg = lib.streamed_minsum_error_string(err).decode()

@@ -166,6 +166,7 @@ def _print_info(cfg: SweepConfig) -> None:
 
     from ..codes.registry import load_code
     from ..decoder import backend_for, default_device, effective_code
+    from ..kernels._lib import SMS_H100
 
     code = effective_code(load_code(cfg.code))
     device = torch.device(cfg.device) if cfg.device else default_device()
@@ -196,15 +197,28 @@ def _print_info(cfg: SweepConfig) -> None:
         print(f"(II) gather       : {len(build_layers(code, cfg.schedule))} "
               f"{cfg.schedule} layers, {tile} codewords per CTA, "
               f"{smem_bytes(code.N, tile)} B shared memory")
-    if backend == "cuda-streamed":
-        from ..kernels.streamed import SMS_H100, pick_tile
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" and torch.cuda.is_available()
+           else SMS_H100)
+    if backend == "cuda":
+        from ..kernels import layered
 
-        sms = (torch.cuda.get_device_properties(device).multi_processor_count
-               if torch.cuda.is_available() else SMS_H100)
-        tile = pick_tile(code, cfg.batch, sms)
-        print(f"(II) streamed     : {tile} codewords per CTA at batch "
-              f"{cfg.batch} on {sms} SMs, APP and messages in device memory "
-              f"({-(-cfg.batch // tile) * tile * (code.N + code.M)} B)")
+        tile = layered.pick_tile(code, cfg.batch, sms)
+        print(f"(II) QC kernel    : {tile} codewords per CTA at batch "
+              f"{cfg.batch} on {sms} SMs, {layered.NTHREADS // tile} check "
+              f"lanes, {layered.smem_bytes(code, tile)} B shared memory")
+    if backend == "cuda-streamed":
+        from ..kernels import streamed
+
+        shapes = streamed.layer_shapes(code, cfg.schedule)
+        v = streamed.pick_tile(code, cfg.batch, sms, cfg.schedule, shapes)
+        msgs = -(-cfg.batch // v.tile) * v.tile * sum(g * d for g, d in shapes)
+        where = ("shared memory" if v.placement == "smem"
+                 else "device memory")
+        print(f"(II) streamed     : {v.tile} codewords per CTA at batch "
+              f"{cfg.batch} on {sms} SMs, {v.k} lanes a check, APP in "
+              f"{where} ({streamed.smem_bytes(code, v)} B shared memory a "
+              f"CTA), messages in device memory ({msgs} B)")
 
 
 def _print_histo(cfg: SweepConfig) -> None:

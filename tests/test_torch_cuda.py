@@ -20,7 +20,7 @@ import torch
 
 from ldpcgputegra_tpu_torch.bench import profile_1944 as P
 from ldpcgputegra_tpu_torch.bench import roofline as R
-from ldpcgputegra_tpu_torch.bench import suite
+from ldpcgputegra_tpu_torch.bench import suite, tiles
 from ldpcgputegra_tpu_torch.bench import vpu_probe as V
 from ldpcgputegra_tpu_torch.codes.code import LdpcCode
 from ldpcgputegra_tpu_torch.codes.dvbs2 import to_qc_form
@@ -66,6 +66,29 @@ def test_kernel_matches_plain(dev, name, algo, minclamp, et):
     pb, pi = make_layered_decoder(code, spec, dev)(llr)
     assert torch.equal(kb, pb)
     assert int(ki) == int(pi)
+
+
+ALGOS = [("OMS", "pre"), ("MS", "post"), ("NMS", "pre"), ("2NMS", "post")]
+
+
+@pytest.mark.parametrize("tile", K.TILES)
+@pytest.mark.parametrize("name", ["1944x972", "randqc16"])
+@pytest.mark.parametrize("algo,minclamp", ALGOS)
+@pytest.mark.parametrize("et", [False, True])
+def test_kernel_every_tile(dev, tile, name, algo, minclamp, et):
+    """Each build of the QC kernel, forced through its pick as
+    ``bench/tiles.py`` does, on a ragged batch: four codewords a thread at
+    DMAX 8 (an odd-Z code), one at DMAX 16 (a random QC code of degree
+    12)."""
+    code = (make_random_qc_code(20, 4, 12, Z=16, seed=5) if name == "randqc16"
+            else load_code(name))
+    assert K.pack(code) == (4 if name == "1944x972" else 1)
+    spec = LayeredSpec(algo=algo, iters=6, minclamp=minclamp, early_term=et)
+    llr = torch.from_numpy(_llrs(code.N, 203, seed=4, std=0.6)).to(dev)
+    with tiles.forced_layered(tile):
+        kb, ki = K.make_cuda_decoder(code, spec)(llr)
+    pb, pi = make_layered_decoder(code, spec, dev)(llr)
+    assert torch.equal(kb, pb) and int(ki) == int(pi)
 
 
 def test_kernel_golden_vectors(dev):
@@ -189,17 +212,42 @@ def test_streamed_kernel_matches_plain(dev, name, algo, minclamp, et):
     assert int(ki) == int(pi)
 
 
-@pytest.mark.parametrize("tile", S.TILES)
-def test_streamed_kernel_every_tile(dev, tile):
-    """Each tile width the kernel ships, on a view with every feature,
-    through the batch that ``pick_tile`` maps to it on this card (DMAX 16:
-    one CTA an SM)."""
+_VARIANTS = [S.Variant(p, t, k)
+             for p, ts in (("smem", S.SMEM_TILES), ("device", S.TILES))
+             for t in ts for k in S.LANES if k == 1 or t <= 8]
+
+
+@pytest.mark.parametrize("variant", _VARIANTS, ids=str)
+@pytest.mark.parametrize("algo,minclamp", ALGOS)
+@pytest.mark.parametrize("et", [False, True])
+def test_streamed_kernel_every_tile(dev, variant, algo, minclamp, et):
+    """Each build of the streamed kernel at DMAX 16 (both APP placements,
+    every tile, 1, 2 and 4 lanes a check), forced through its pick as
+    ``bench/tiles.py`` does, on a view with every feature and a ragged
+    batch."""
     code = _streamed_code("16200x10800")
-    spec = LayeredSpec(iters=5, early_term=True)
-    B = tile * torch.cuda.get_device_properties(dev).multi_processor_count
-    assert S.pick_tile(code, B, B // tile) == tile
-    llr = torch.from_numpy(_llrs(code.N, B, seed=6, std=0.6)).to(dev)
-    kb, ki = S.make_streamed_decoder(code, spec)(llr)
+    assert variant in S.variants(code)
+    spec = LayeredSpec(algo=algo, iters=5, minclamp=minclamp, early_term=et)
+    llr = torch.from_numpy(_llrs(code.N, 37, seed=6, std=0.6)).to(dev)
+    with tiles.forced_streamed(variant):
+        kb, ki = S.make_streamed_decoder(code, spec)(llr)
+    pb, pi = make_layered_decoder(code, spec, dev)(llr)
+    assert torch.equal(kb, pb) and int(ki) == int(pi)
+
+
+@pytest.mark.parametrize("variant", [S.Variant("smem", 1, 4),
+                                     S.Variant("smem", 2, 2),
+                                     S.Variant("device", 4, 4),
+                                     S.Variant("smem", 1, 1)], ids=str)
+@pytest.mark.parametrize("et", [False, True])
+def test_streamed_kernel_lanes_at_degree_30(dev, variant, et):
+    """Several lanes a check at DMAX 32 on 64800x6480-dvbs2 (sub-pass
+    layers of about 90 committed checks of degree 30)."""
+    code = _streamed_code("64800x6480-dvbs2")
+    spec = LayeredSpec(iters=4, early_term=et)
+    llr = torch.from_numpy(_llrs(code.N, 9, seed=8, std=0.5)).to(dev)
+    with tiles.forced_streamed(variant):
+        kb, ki = S.make_streamed_decoder(code, spec)(llr)
     pb, pi = make_layered_decoder(code, spec, dev)(llr)
     assert torch.equal(kb, pb) and int(ki) == int(pi)
 

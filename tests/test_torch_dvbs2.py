@@ -26,6 +26,7 @@ from ldpcgputegra_tpu_torch.decoder import (
 from ldpcgputegra_tpu_torch.kernels import gather as G
 from ldpcgputegra_tpu_torch.kernels import layered as K
 from ldpcgputegra_tpu_torch.kernels import streamed as S
+from ldpcgputegra_tpu_torch.kernels._lib import SMEM_MAX
 from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec, make_layered_decoder
 
 CUDA = torch.device("cuda")
@@ -255,24 +256,44 @@ def test_streamed_wrapper_runs_plain_on_cpu_tensors():
     assert S.launches["streamed_minsum"] == before  # no kernel on the CPU
 
 
-@pytest.mark.parametrize("name,B,sms,tile", [
-    ("64800x32400", 512, 132, 2), ("64800x32400", 2048, 132, 8),
-    ("16200x7560", 1024, 132, 8), ("64800x6480-dvbs2", 256, 132, 2),
-    ("64800x6480-dvbs2", 1024, 132, 8), (SYNTHQC, 256, 132, 1),
-    ("16200x7560", 9000, 132, 32), ("64800x32400", 512, 114, 4),
-    ("16200x7560", 1024, 114, 16), ("64800x6480-dvbs2", 256, 114, 4),
+_SMEM, _DEV = "smem", "device"
+
+
+@pytest.mark.parametrize("name,B,sms,variant", [
+    ("64800x32400", 512, 132, (_SMEM, 1, 1)),
+    ("64800x32400", 2048, 132, (_SMEM, 1, 1)),
+    ("16200x7560", 1024, 132, (_SMEM, 2, 2)),
+    ("64800x6480-dvbs2", 256, 132, (_SMEM, 1, 4)),
+    ("64800x6480-dvbs2", 1024, 132, (_SMEM, 1, 4)),
+    (SYNTHQC, 256, 132, (_DEV, 1, 1)),
+    ("16200x7560", 9000, 132, (_SMEM, 2, 2)),
+    ("64800x32400", 512, 114, (_SMEM, 1, 1)),
+    ("16200x7560", 1024, 114, (_SMEM, 2, 2)),
+    ("64800x6480-dvbs2", 256, 114, (_SMEM, 1, 4)),
 ])
-def test_streamed_tile_fills_the_card_once(name, B, sms, tile):
-    """The narrowest tile whose CTAs fit the card at once: two CTAs an SM
-    at DMAX = 8, one at 16 and 32, on the card's own SMs (132 on an H100
-    SXM, 114 on an H100 PCIe)."""
+def test_streamed_tile_fills_the_card_once(name, B, sms, variant):
+    """The variant (APP placement, tile, lanes a check) of the least
+    modelled cost, waves of CTAs on the card's own SMs (132 on an H100 SXM,
+    114 on an H100 PCIe) x rounds of checks, each round charged for where
+    its APP lives and for the edges a lane walks; the APP in shared memory
+    wherever a tile of it fits."""
     code = effective_code(load_code(name))
-    assert S.pick_tile(code, B, sms) == tile
-    per_sm = 2 if S._dmax(code) == 8 else 1
-    assert -(-B // tile) <= sms * per_sm or tile == S.TILES[0]
-    assert tile == 1 or -(-B // (tile // 2)) > sms * per_sm
+    shapes = S.layer_shapes(code)
+    v = S.pick_tile(code, B, sms)
+    assert v == S.Variant(*variant)
+
+    def cost(u):
+        per_sm = S.ctas_per_sm(code, u)
+        waves = -(-(-(-B // u.tile)) // (sms * per_sm))
+        lanes = S.NTHREADS // (u.tile * u.k)
+        return waves * sum(-(-g // lanes) * (S.ROUND_COST[u.placement]
+                                             + S.EDGE_COST * -(-d // u.k))
+                           for g, d in shapes)
+
+    assert all(cost(v) <= cost(u) for u in S.variants(code))
+    assert S.smem_bytes(code, v) <= SMEM_MAX
     if sms == S.SMS_H100:
-        assert S.pick_tile(code, B) == tile  # the default without a card
+        assert S.pick_tile(code, B) == v  # the default without a card
 
 
 def test_cli_info_resolves_the_streamed_backend(capsys):
@@ -283,6 +304,7 @@ def test_cli_info_resolves_the_streamed_backend(capsys):
     out = capsys.readouterr().out
     assert "backend      : cuda-streamed" in out
     assert "105 (qc 105, sub-pass 23) of the QC view" in out
-    assert "2 codewords per CTA at batch 512" in out
+    assert ("1 codewords per CTA at batch 512 on 132 SMs, 1 lanes a check, "
+            "APP in shared memory (64804 B shared memory a CTA)") in out
     cli.main(["--code", "64800x32400", "--info", "--device", "cpu"])
     assert "backend      : torch" in capsys.readouterr().out
