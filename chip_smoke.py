@@ -19,7 +19,12 @@ decoders through ``run_sweep`` and the CLI (1944x972, 4000x2000,
 64800x32400), the probes through the benchmark suite
 (``bench/suite.py --quick``, which measures the ceilings and times all 40
 suite rows and 4 latency rows) and the odd-Z profile
-(``bench/profile_1944.py``), whose outputs go to ``bench_results/smoke/``.
+(``bench/profile_1944.py``), whose outputs go to ``bench_results/smoke/``;
+then the two-phase early-termination path (``decoder/twophase.py``): the
+QC kernel's convergence mask against the plain decode and its syndrome in
+every build, the kernel's time with and without the mask, and the
+two-phase decoder at 2304x1152 over a short window, each frame checked
+against the k1 and full decodes, with the kernel's launches on that path.
 Imports nothing of JAX.  Exits non-zero, before printing any result, when
 there is no CUDA device or the package is not beside this script; any
 failing phase exits non-zero.  The last line of standard output is
@@ -298,6 +303,133 @@ def _time_probes(dev, sms, hw, smi):
     return out
 
 
+def _hold_mask(dev, sm_count) -> int:
+    """The QC kernel with its convergence mask against the plain decode and
+    ``syndrome_fn`` on the card, 2NMS 5 iterations: bits, ``iters_used``
+    and ``ok`` at 2304x1152 B=8192 (the two-phase path's phase 1, the
+    pick's tile), and in every build at ragged batches of 1944x972 (four
+    codewords a thread) and a random QC code of degree 12 (one).  Returns
+    the largest |difference| (0); fails unless each batch mixes converged
+    and unconverged frames."""
+    import torch
+
+    from ldpcgputegra_tpu_torch.bench import tiles
+    from ldpcgputegra_tpu_torch.codes.registry import (
+        load_code,
+        make_random_qc_code,
+    )
+    from ldpcgputegra_tpu_torch.decoder.twophase import syndrome_fn
+    from ldpcgputegra_tpu_torch.kernels import layered as K
+    from ldpcgputegra_tpu_torch.ops.layered import (
+        LayeredSpec,
+        make_layered_decoder,
+    )
+
+    spec = LayeredSpec(algo="2NMS", iters=5, minclamp="post")
+    max_err = 0
+    for name, B, snr, every in (("2304x1152", 8192, 2.5, False),
+                                ("1944x972", 1000, 2.5, True),
+                                ("randqc16", 203, 3.5, True)):
+        code = (make_random_qc_code(20, 4, 12, Z=16, seed=5)
+                if name == "randqc16" else load_code(name))
+        llr = tiles.llrs(code, B, snr, seed=800 + B).to(dev)
+        pb, pi = make_layered_decoder(code, spec, dev)(llr)
+        pok = syndrome_fn(code, dev)(pb)
+        dec = K.make_cuda_decoder(code, spec, emit_mask=True)
+        builds = tiles.layered_variants(code) if every else [
+            K.pick_tile(code, B, sm_count)]
+        for tile in builds:
+            with tiles.forced_layered(tile):
+                kb, ki, kok = dec(llr)
+            torch.cuda.synchronize()
+            err = max(int((kb.to(torch.int16) - pb.to(torch.int16)).abs()
+                          .max()),
+                      int((kok.to(torch.int16) - pok.to(torch.int16)).abs()
+                          .max()),
+                      abs(int(ki) - int(pi)))
+            max_err = max(max_err, err)
+            print(f"[mask-vs-plain] {name} B={B} tile {tile} (pack "
+                  f"{K.pack(code)}) 2NMS 5 it {snr} dB: max|bits, ok, iters "
+                  f"diff|={err}; ok {int(kok.sum())} of {B}")
+            assert err == 0, "the mask kernel disagrees with plain"
+        assert 0 < int(pok.sum()) < B, "the batch must be mixed"
+    return max_err
+
+
+def _twophase_path(dev, smi, alu_rate):
+    """K1's time at k1=5 with and without its mask (and the mask pass's
+    bound: 3 operations an edge at ``alu_rate``); then the two-phase
+    decoder at 2304x1152 2NMS 2.5 dB B=8192 k1=5 over a window of 4
+    batches (serial, pipelined, fused), with the kernel's launches on it
+    counted, and each frame of the serial output checked against the k1
+    and full decodes.  Returns (launches, mask ms, ms without the mask)."""
+    import dataclasses
+
+    import torch
+
+    from ldpcgputegra_tpu_torch.bench import measure_call, tiles
+    from ldpcgputegra_tpu_torch.channel.awgn import AwgnChannel
+    from ldpcgputegra_tpu_torch.codes.registry import load_code
+    from ldpcgputegra_tpu_torch.decoder.twophase import (
+        make_twophase_decoder,
+        syndrome_fn,
+    )
+    from ldpcgputegra_tpu_torch.kernels import layered as K
+    from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec
+
+    code, B, k1 = load_code("2304x1152"), 8192, 5
+    spec = LayeredSpec(algo="2NMS", iters=10, minclamp="post")
+    spec1 = dataclasses.replace(spec, iters=k1)
+    inputs = [tiles.llrs(code, B, 2.5, seed=820 + i).to(dev) for i in range(3)]
+    t_off = measure_call(K.make_cuda_decoder(code, spec1), inputs)
+    t_mask = measure_call(K.make_cuda_decoder(code, spec1, emit_mask=True),
+                          inputs)
+    mask_ops = 3 * B * code.M
+    print(f"[mask-time] 2304x1152 B={B} 2NMS {k1} it: {t_mask * 1e3:.4f} ms "
+          f"with the mask, {t_off * 1e3:.4f} ms without "
+          f"({t_mask / t_off - 1:+.2%}); the pass's bound {mask_ops:.4e} "
+          f"operations = {mask_ops / alu_rate * 1e3:.4f} ms at the best "
+          f"probe | {smi}")
+
+    tp = make_twophase_decoder(code, spec, k1=k1, device=dev)
+    chan = AwgnChannel(code.N, code.K, device=dev)
+    chan.configure(2.5)
+    llrs = [chan.generate_zero_int8(chan.generator(840 + i), B)
+            for i in range(4)]
+    tp.warm_buckets(llrs[0])
+    tp.warm_fused(llrs[0], 2048)
+    torch.cuda.synchronize()
+    K.launches["layered_minsum"] = 0
+    t0 = time.perf_counter()
+    serial = [tp(x) for x in llrs]
+    piped, agg = tp.pipelined(llrs)
+    fused, fagg = tp.pipelined_fused(llrs, 2048)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_launch = K.launches["layered_minsum"]
+    print(f"[twophase] 2304x1152 B={B} 2NMS 2.5 dB k1={k1}: 4 batches x "
+          f"(serial, pipelined, fused at 2048) in {wall:.4f} s wall; "
+          f"layered_minsum launches: {n_launch}; pipelined {agg}; fused "
+          f"{fagg} | {smi}")
+    assert n_launch > 0, "the two-phase path did not run the kernel"
+    d1 = K.make_cuda_decoder(code, spec1, emit_mask=True)
+    d10 = K.make_cuda_decoder(code, spec)
+    ok_fn = syndrome_fn(code, dev)
+    for x, (bits, stats), pb, fb in zip(llrs, serial, piped, fused):
+        b1, _, ok1 = d1(x)
+        b10, _ = d10(x)
+        assert torch.equal(ok1, ok_fn(b1)), "the mask is not the syndrome"
+        assert stats["phase2_frames"] == int((~ok1).sum())
+        assert torch.equal(bits[ok1], b1[ok1]), "a converged frame changed"
+        assert torch.equal(bits[~ok1], b10[~ok1]), "a phase-2 frame differs"
+        assert torch.equal(pb, bits) and torch.equal(fb, bits)
+        assert 0 < stats["phase2_frames"] < B
+        print(f"[twophase] batch: {stats}; frames checked against the k1 "
+              f"and full decodes")
+    assert fagg["overflows"] == 0
+    return n_launch, t_mask, t_off
+
+
 def main() -> int:
     import torch
 
@@ -560,7 +692,13 @@ def main() -> int:
     assert rc == 0 and r_launch > 0, "the profile failed"
     phase_done(15)
 
-    # 16. the bound of every timed decode (``bench/roofline.py``): against
+    # 16. the two-phase path: K1's mask against the plain version, its
+    # cost, and the two-phase decoder with counted launches
+    mask_err = _hold_mask(dev, sm_count)
+    tp_launch, t_mask, t_mask_off = _twophase_path(dev, smi, rates["alu"])
+    phase_done(16)
+
+    # 17. the bound of every timed decode (``bench/roofline.py``): against
     # the data sheet's rates and against the probed ones
     bounds = {}
     timed = ([("layered_minsum", n, B, k_times[n]) for n, B in
@@ -616,7 +754,7 @@ def main() -> int:
               f"{prb['roofline_frac']:.1%} of it; {mix['t_roofline_ms']:.4f} ms "
               f"at the mix's probed rate, {mix['roofline_frac']:.1%} of it "
               f"| {smi}")
-    phase_done(16)
+    phase_done(17)
 
     # "route" is how the kernel is written (CUDA C++); "backend" is the
     # decoder backend that ``auto`` resolves to on the path it was driven
@@ -635,6 +773,14 @@ def main() -> int:
     ]
     kernels = []
     for name, path_code, mod, launches, err, timed_code, (t, t_plain) in rows:
+        # K1's row: its launches on the two-phase path, its largest
+        # disagreement over bits, iters_used and ok, and its time at k1=5
+        # with and without the mask
+        mask = ({"launches_twophase": tp_launch, "mask_ms": t_mask * 1e3,
+                 "mask_off_ms": t_mask_off * 1e3}
+                if name == "layered_minsum" else {})
+        if name == "layered_minsum":
+            err = max(err, mask_err)
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -650,6 +796,7 @@ def main() -> int:
             "probed_bound_ms": bounds[timed_code][2],
             "probed_mix_bound_ms": bounds[timed_code][3],
             "library_ms": None,
+            **mask,
         })
     probe_rows = [(n, "probes.cu", V.REPLACES[n], p_launch[n])
                   for n in ("probe_mix", "probe_peak", "probe_copy")]

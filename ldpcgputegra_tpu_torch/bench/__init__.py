@@ -7,7 +7,7 @@ The entry points ``bench.suite`` (the benchmark suite) and
 load them twice.
 """
 
-from .harness import measure_call, throughput_report
+from .harness import measure_call, measure_host_call, throughput_report
 from .roofline import (
     HwSpec,
     hw_spec,
@@ -17,6 +17,6 @@ from .roofline import (
 )
 from .vpu_probe import measure_alu_rate, measure_hbm_bw
 
-__all__ = ["measure_call", "throughput_report", "HwSpec", "hw_spec",
-           "table_spec", "kernel_model", "roofline_report",
+__all__ = ["measure_call", "measure_host_call", "throughput_report",
+           "HwSpec", "hw_spec", "table_spec", "kernel_model", "roofline_report",
            "measure_alu_rate", "measure_hbm_bw"]

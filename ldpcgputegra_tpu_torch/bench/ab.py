@@ -1,6 +1,7 @@
 """Two checkouts' decode kernels on one card, timed in turns.
 
     python -m ldpcgputegra_tpu_torch.bench.ab --other DIR [--rounds 2]
+        [--only SUBSTRING]
 
 ``DIR`` is the root of another checkout of the repository (for example a
 parent commit unpacked with ``git archive``); it needs its
@@ -10,7 +11,8 @@ kernel (``make_gather_decoder``) at the QC path's shapes, and the streamed
 kernel (``make_streamed_decoder``) at the DVB-S2 path's, OMS 10 iterations,
 ET off (``measure_call``, CUDA events), in a fresh process of its own
 whose kernels are built from that tree's sources, in the order other,
-this, this, other (``--rounds`` pairs).  Prints each process's times, then
+this, this, other (``--rounds`` pairs); ``--only`` keeps the shapes whose
+"kernel code B=batch" holds the substring.  Prints each process's times, then
 per kernel and shape the best time of each tree and this tree's over the
 other's, with the card's name and power limit, and what each tree's decode
 kernels compile to (``bench/sass.py``).  Needs a CUDA device.
@@ -84,7 +86,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True)
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--only", default="")
     args = ap.parse_args(argv)
+    shapes = [s for s in SHAPES if args.only in f"{s[0]} {s[1]} B={s[2]}"]
     import torch
 
     if not torch.cuda.is_available():
@@ -99,7 +103,7 @@ def main(argv=None) -> int:
     for r in range(args.rounds):
         order += ["other", "this"] if r % 2 == 0 else ["this", "other"]
     for tag in order:
-        times = run_tree(other if tag == "other" else _ROOT, SHAPES)
+        times = run_tree(other if tag == "other" else _ROOT, shapes)
         runs[tag].append(times)
         print(f"[ab] {tag}: " + ", ".join(f"{k} {v:.4f}" for k, v in
                                           times.items()) + f" | {smi}",

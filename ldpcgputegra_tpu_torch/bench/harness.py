@@ -8,16 +8,33 @@ the JAX package's salted slope harness, whose relay hazards do not exist
 on a local card, and plays the role of the reference's CUDA-event timer
 (``code/gpu_fixed/timer/CTimer.cu:31-60``).
 
-It times the card only: inputs that are not CUDA tensors raise.
+``measure_host_call`` times a path that the host drives (it reads a
+value from the card between launches, as the two-phase decoder does) by
+the host clock, with the card synchronised at each end of a window, over
+disjoint slices of its inputs.
+
+Both time the card only: inputs that are not CUDA tensors raise.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Sequence
 
 import torch
 
-__all__ = ["measure_call", "throughput_report"]
+__all__ = ["measure_call", "measure_host_call", "device_time_by_kernel",
+           "throughput_report"]
+
+
+def _cuda_inputs(inputs, who: str) -> torch.device:
+    if not inputs or any(
+        not isinstance(x, torch.Tensor) or x.device.type != "cuda"
+        for x in inputs
+    ):
+        raise RuntimeError(f"{who} times the card: inputs must be CUDA "
+                           "tensors")
+    return inputs[0].device
 
 
 def measure_call(
@@ -32,13 +49,7 @@ def measure_call(
     ``inputs`` are CUDA tensors, cycled through.  Each count k is timed
     ``repeats`` times and the fastest kept.
     """
-    if not inputs or any(
-        not isinstance(x, torch.Tensor) or x.device.type != "cuda"
-        for x in inputs
-    ):
-        raise RuntimeError("measure_call times the card: inputs must be "
-                           "CUDA tensors")
-    dev = inputs[0].device
+    dev = _cuda_inputs(inputs, "measure_call")
     with torch.cuda.device(dev):
         for x in inputs:  # warm-up: builds, allocator pools
             fn(x)
@@ -57,6 +68,55 @@ def measure_call(
         t_small = min(run(k_small) for _ in range(repeats))
         t_large = min(run(k_large) for _ in range(repeats))
     return max((t_large - t_small) / (k_large - k_small), 1e-9)
+
+
+def measure_host_call(
+    fn: Callable,
+    inputs: Sequence[torch.Tensor],
+    k_small: int = 3,
+    k_large: int = 12,
+    warm: int = 2,
+    repeats: int = 1,
+) -> float:
+    """Seconds per ``fn(input)`` call of a host-driven path, by the host
+    clock: the slope between a window of ``k_small`` calls and one of
+    ``k_large``, each from a synchronised card to a synchronised card.
+
+    The warm-up, the small and the large window take disjoint slices of
+    ``inputs`` (``warm + k_small + k_large`` CUDA tensors); ``repeats``
+    times each window again on the same slice and keeps the fastest.
+    """
+    dev = _cuda_inputs(inputs, "measure_host_call")
+    need = warm + k_small + k_large
+    if len(inputs) < need:
+        raise ValueError(f"need {need} distinct inputs, got {len(inputs)}")
+
+    def run(k: int, ofs: int) -> float:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for i in range(k):
+            fn(inputs[ofs + i])
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    with torch.cuda.device(dev):
+        run(warm, 0)
+        t_small = min(run(k_small, warm) for _ in range(repeats))
+        t_large = min(run(k_large, warm + k_small) for _ in range(repeats))
+    return max((t_large - t_small) / (k_large - k_small), 1e-9)
+
+
+def device_time_by_kernel(prof) -> dict[str, float]:
+    """Microseconds of device time by kernel name (kernels, copies, sets)
+    in a finished ``torch.profiler.profile``."""
+    dev_us: dict[str, float] = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(evt, "self_device_time_total", None)
+            if t is None:
+                t = evt.self_cuda_time_total
+            dev_us[evt.key] = dev_us.get(evt.key, 0.0) + t
+    return dev_us
 
 
 def throughput_report(

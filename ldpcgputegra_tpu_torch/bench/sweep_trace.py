@@ -23,6 +23,7 @@ import torch
 
 from ..codes.registry import load_code
 from ..sim.sweep import SweepConfig, run_sweep
+from .harness import device_time_by_kernel
 
 
 def main(argv=None) -> int:
@@ -64,13 +65,7 @@ def main(argv=None) -> int:
            torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=act) as prof:
         p, wall = point()
-    dev_us = {}
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            t = getattr(evt, "self_device_time_total", None)
-            if t is None:
-                t = evt.self_cuda_time_total
-            dev_us[evt.key] = dev_us.get(evt.key, 0.0) + t
+    dev_us = device_time_by_kernel(prof)
     total = sum(dev_us.values())
     print(f"[trace] {tag}: traced wall {wall:.4f} s, device time "
           f"{total / 1e3:.3f} ms, device busy {total / 1e6 / wall:.3f} of the "

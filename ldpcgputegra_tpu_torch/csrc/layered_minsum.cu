@@ -60,6 +60,17 @@
 // loop once all of its codewords are frozen; iters_used is the max over CTAs
 // of the iterations run, by atomicMax into one int32.
 //
+// The convergence mask (ok, the phase-1 output of two-phase early
+// termination, decoder/twophase.py; pallas_layered.py's syndrome_pass): when
+// the caller passes an ok array, a CTA walks every block-row once more after
+// the iteration loop, each check lane reading its checks' APP words through
+// the same r walk as the decode and XORing their hard decisions, and writes
+// ok[b] = 1 where codeword b satisfies every check.  About three operations
+// an edge, once, against 21 an edge update an iteration.  A runtime branch
+// after the loop, not a template parameter: the decode loop's code and the
+// number of builds stay as they are.  It does not combine with early
+// termination (the launch refuses both), as in the JAX package.
+//
 // TPU workarounds that have no counterpart here: the int32 APP kept for
 // sublane rolls, the Zp padding and _roll_mod (an odd Z is a plain mod-Z
 // index), the 128-lane batch padding (a ragged B masks its last tile), the
@@ -81,6 +92,7 @@ struct Params {
   uint8_t* bits;         // [B, N] frame-major
   int8_t* msgs;          // [ceil(B / TB)][E][TB]
   int* iters_out;        // scalar, zeroed before the launch
+  uint8_t* ok;           // [B] 1 where the output satisfies every check; null: none
   const int* row_ptr;    // [L + 1] block-row edge ranges into cols/shifts
   const int* cols;       // [n_edges] block-column of each block edge
   const int* shifts;     // [n_edges] cyclic shift of each block edge
@@ -264,6 +276,47 @@ layered_minsum_kernel(Params p) {
   }
   __syncthreads();
   if (tid == 0) atomicMax(p.iters_out, iters_run);
+  if (p.ok) {
+    // the true syndrome of the output: bit k of unsat is codeword cx * W + k
+    // with an unsatisfied check among this lane's
+    if (tid < TB) s_unsat[tid] = 0;
+    unsigned unsat = 0;
+    for (int l = 0; l < p.n_layers; ++l) {
+      const int e0 = s_row[l], deg = s_row[l + 1] - e0;
+      int r[DMAX];
+#pragma unroll
+      for (int j = 0; j < DMAX; ++j) {
+        if (j < deg) {
+          r[j] = s_shift[e0 + j] + ty;
+          r[j] -= (r[j] >= Z) ? Z : 0;
+        }
+      }
+      for (int z = ty; z < Z; z += TY) {
+        T aw[DMAX];
+#pragma unroll
+        for (int j = 0; j < DMAX; ++j)
+          if (j < deg) aw[j] = at[(s_vn0[e0 + j] + r[j]) * COLS];
+        unsigned parity = 0;  // bit k: this check's parity in codeword k
+#pragma unroll
+        for (int j = 0; j < DMAX; ++j) {
+          if (j < deg) {
+#pragma unroll
+            for (int k = 0; k < W; ++k)
+              parity ^= static_cast<unsigned>(byte_of<W>(aw[j], k) > 0) << k;
+            r[j] += TY;
+            r[j] -= (r[j] >= Z) ? Z : 0;
+          }
+        }
+        unsat |= parity;
+      }
+    }
+    __syncthreads();  // the zeroed flags are visible
+#pragma unroll
+    for (int k = 0; k < W; ++k)
+      if (unsat >> k & 1u) s_unsat[cx * W + k] = 1;
+    __syncthreads();
+    if (tid < nb) p.ok[tile0 + tid] = s_unsat[tid] == 0;
+  }
   for (int i = tid; i < nb * N; i += NTHREADS) {
     const int bl = i / N, n = i - bl * N;
     p.bits[static_cast<size_t>(tile0 + bl) * N + n] = app[n * TB + bl] > 0;
@@ -299,10 +352,11 @@ extern "C" {
 
 // Launch one decode on `stream` with a tile of `tile` codewords per CTA and
 // contribution arrays of `dmax` (>= every block-row's degree); `msgs` is
-// scratch of ceil(B / tile) * Z * n_edges * tile bytes.  Returns a
+// scratch of ceil(B / tile) * Z * n_edges * tile bytes; `ok` is null or B
+// bytes for the convergence mask (not with early_term).  Returns a
 // cudaError_t (0 on success).
 int layered_minsum_launch(const void* llr, void* bits, void* msgs,
-                          void* iters_out, const void* row_ptr,
+                          void* iters_out, void* ok, const void* row_ptr,
                           const void* cols, const void* shifts, int n_layers,
                           int n_edges, int N, int Z, int B, int tile, int dmax, int algo, int minclamp_pre, int iters,
                           int early_term, int offset, int nms_f, int nms_f2,
@@ -310,11 +364,12 @@ int layered_minsum_launch(const void* llr, void* bits, void* msgs,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p{static_cast<const int8_t*>(llr), static_cast<uint8_t*>(bits),
            static_cast<int8_t*>(msgs), static_cast<int*>(iters_out),
-           static_cast<const int*>(row_ptr), static_cast<const int*>(cols),
+           static_cast<uint8_t*>(ok), static_cast<const int*>(row_ptr), static_cast<const int*>(cols),
            static_cast<const int*>(shifts), n_layers, n_edges, N, Z, B,
            iters, early_term,
            CnSpec{algo, minclamp_pre, offset, nms_f, nms_f2, sat_var, sat_msg}};
   if (B <= 0 || N <= 0 || Z <= 0 || n_layers <= 0 || n_edges <= 0 ||
+      (ok && early_term) ||
       static_cast<long long>(Z) * n_edges * tile >= (1LL << 31) ||
       static_cast<long long>(N) * tile >= (1LL << 31))
     return cudaErrorInvalidValue;

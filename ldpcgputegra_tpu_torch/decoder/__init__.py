@@ -23,7 +23,15 @@ Staircase (DVB-S2-family) codes are replaced by their Z=360 QC view
 internally, so callers see the original column order.
 
 All backends return ``decode(llr[B, N] int8) -> (bits[B, N] uint8,
-iters_used)`` on tensors of the decoder's device.
+iters_used)`` on tensors of the decoder's device.  With ``emit_mask`` they
+return ``(bits, iters_used, ok[B] bool)``, ``ok`` true where the output
+satisfies every check of the code the caller passed (the phase-1 output of
+two-phase early termination, ``decoder/twophase.py``): ``cuda`` from the
+QC kernel's own syndrome pass; the other backends from
+``twophase.syndrome_fn`` on the original code, appended on the same stream
+(``_with_mask``).  The JAX package computes that step in XLA, outside any
+Pallas kernel, so its counterpart here is PyTorch operations on the device,
+not a kernel.
 """
 
 from __future__ import annotations
@@ -95,22 +103,44 @@ def make_decoder(
     spec: LayeredSpec = LayeredSpec(),
     backend: str = "auto",
     device=None,
+    emit_mask: bool = False,
 ):
     """Build the decoder for ``code`` (its QC view for a staircase code) on
-    ``device`` (default: ``default_device()``)."""
+    ``device`` (default: ``default_device()``); ``emit_mask`` adds the
+    convergence mask (see the module's docstring)."""
     device = torch.device(device) if device is not None else default_device()
     resolved = backend_for(code, spec, device, backend)
-    code = effective_code(code)
+    orig_code, code = code, effective_code(code)
     if resolved == "cuda":
         from ..kernels import make_cuda_decoder
 
-        return make_cuda_decoder(code, spec)
+        return make_cuda_decoder(code, spec, emit_mask=emit_mask)
     if resolved == "cuda-gather":
         from ..kernels import make_gather_decoder
 
-        return make_gather_decoder(code, spec)
-    if resolved == "cuda-streamed":
+        dec = make_gather_decoder(code, spec)
+    elif resolved == "cuda-streamed":
         from ..kernels import make_streamed_decoder
 
-        return make_streamed_decoder(code, spec)
-    return make_layered_decoder(code, spec, device)
+        dec = make_streamed_decoder(code, spec)
+    else:
+        dec = make_layered_decoder(code, spec, device)
+    return _with_mask(dec, orig_code, emit_mask, device)
+
+
+def _with_mask(dec, code: LdpcCode, emit_mask: bool, device):
+    """Append the true syndrome of the output bits on ``code`` (the
+    original code, in its own column order) to a ``(bits, iters)`` decoder:
+    ``(bits, iters, ok[B])``, queued on the same stream, with no host
+    read."""
+    if not emit_mask:
+        return dec
+    from .twophase import syndrome_fn
+
+    ok_fn = syndrome_fn(code, device)
+
+    def dec_mask(llr):
+        bits, iters = dec(llr)
+        return bits, iters, ok_fn(bits)
+
+    return dec_mask

@@ -19,9 +19,15 @@ The kernel is compiled at first use (``kernels/_lib.py``), from this
 checkout's sources only, and loaded with ctypes.  Importing this module
 needs neither nvcc nor CUDA.
 
+With ``emit_mask`` the kernel also writes ``ok[B]``, the true syndrome of
+each output codeword (``pallas_layered.py``'s ``syndrome_pass``), from one
+more walk over the block-rows after the iteration loop: the phase-1 output
+of two-phase early termination (``decoder/twophase.py``).
+
 On a CPU tensor the decoder runs the plain version
-(``ops/layered.py::make_layered_decoder``); on a CUDA tensor it launches
-the kernel or raises.
+(``ops/layered.py::make_layered_decoder``, then
+``decoder/twophase.py::syndrome_fn`` for the mask); on a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 from ..codes.code import LdpcCode
 from ..codes.convert import qc_tables
 from ..codes.schedule import build_layers
+from ..decoder.twophase import syndrome_fn
 from ..ops.layered import (
     LayeredSpec,
     is_qc_view,
@@ -126,7 +133,7 @@ def _library() -> ctypes.CDLL:
     if _lib_handle is None:
         lib = ctypes.CDLL(build()["path"])
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.layered_minsum_launch.argtypes = [p] * 7 + [i] * 16 + [p]
+        lib.layered_minsum_launch.argtypes = [p] * 8 + [i] * 16 + [p]
         lib.layered_minsum_launch.restype = i
         lib.layered_minsum_error_string.argtypes = [i]
         lib.layered_minsum_error_string.restype = ctypes.c_char_p
@@ -166,9 +173,12 @@ def cuda_supported(code: LdpcCode, spec: LayeredSpec) -> bool:
     return kernel_unsupported_reason(code, spec) is None
 
 
-def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
+def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec(),
+                      emit_mask: bool = False):
     """Build ``decode(llr[B, N] int8) -> (bits[B, N] uint8, iters_used)``,
-    ``pick_tile`` codewords per CTA.
+    ``pick_tile`` codewords per CTA; with ``emit_mask``, ``(bits,
+    iters_used, ok[B] bool)``, ``ok`` true where the output satisfies every
+    check (not with ``spec.early_term``, as in the JAX package).
 
     On a CUDA tensor it launches the kernel on PyTorch's current stream,
     with no host synchronisation; ``iters_used`` is a 0-d int32 tensor on
@@ -177,6 +187,9 @@ def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
     """
     if spec.algo not in _lib.ALGO:
         raise ValueError(f"unknown algo {spec.algo!r}")
+    if emit_mask and spec.early_term:
+        raise ValueError("emit_mask is the phase-1 output of two-phase early "
+                         "termination; it does not combine with early_term")
     why = kernel_unsupported_reason(code, spec)
     if why is not None:
         raise NotImplementedError(why)
@@ -188,10 +201,17 @@ def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
     def plain():
         return make_layered_decoder(code, spec, "cpu")
 
+    @functools.cache
+    def plain_ok():
+        return syndrome_fn(code, "cpu")
+
     def decode(llr: torch.Tensor):
         _lib.check_llr(llr, code.N)
         if llr.device.type == "cpu":
-            return plain()(llr)
+            bits, iters = plain()(llr)
+            if emit_mask:
+                return bits, iters, plain_ok()(bits)
+            return bits, iters
         lib = _library()
         dev = llr.device
         if dev not in tables:
@@ -204,11 +224,13 @@ def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
         msgs = torch.empty((-(-B // tile), code.Z * n_edges, tile),
                            dtype=torch.int8, device=dev)
         iters = torch.empty((), dtype=torch.int32, device=dev)
+        ok = torch.empty(B, dtype=torch.bool, device=dev) if emit_mask else None
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.layered_minsum_launch(
                 llr.data_ptr(), bits.data_ptr(), msgs.data_ptr(),
-                iters.data_ptr(), t["row_ptr"].data_ptr(),
+                iters.data_ptr(), ok.data_ptr() if emit_mask else None,
+                t["row_ptr"].data_ptr(),
                 t["cols"].data_ptr(), t["shifts"].data_ptr(),
                 len(code.layers), n_edges, code.N, code.Z, B, tile, dmax, _lib.ALGO[spec.algo], int(spec.minclamp == "pre"),
                 spec.iters, int(spec.early_term), spec.offset, spec.nms_f,
@@ -218,6 +240,6 @@ def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
             msg = lib.layered_minsum_error_string(err).decode()
             raise RuntimeError(f"layered_minsum launch failed: {msg} ({err})")
         launches["layered_minsum"] += 1
-        return bits, iters
+        return (bits, iters, ok) if emit_mask else (bits, iters)
 
     return decode

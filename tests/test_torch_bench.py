@@ -27,6 +27,7 @@ from ldpcgputegra_tpu.bench.vpu_probe import _mix_kernel, _peak_kernel
 from ldpcgputegra_tpu.codes.registry import load_code as j_load_code
 from ldpcgputegra_tpu.decoder import effective_code as j_effective_code
 from ldpcgputegra_tpu.ops.layered import LayeredSpec as JSpec
+from ldpcgputegra_tpu_torch.bench import et_study, harness
 from ldpcgputegra_tpu_torch.bench import profile_1944 as P
 from ldpcgputegra_tpu_torch.bench import roofline as R
 from ldpcgputegra_tpu_torch.bench import suite
@@ -361,15 +362,38 @@ def test_demonstrated_ceiling_takes_the_best_row_and_flags_suspects():
 
 # --------------------------------------------------------- entry points --
 
-@pytest.mark.parametrize("entry", ["suite", "profile_1944"])
+@pytest.mark.parametrize("entry", ["suite", "profile_1944", "et_study"])
 def test_entry_points_refuse_without_a_card(entry, tmp_path, monkeypatch,
                                             capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    out = tmp_path / "out" / "RESULTS.md"
-    mod = suite if entry == "suite" else P
+    name = "et_study.jsonl" if entry == "et_study" else "RESULTS.md"
+    out = tmp_path / "out" / name
+    mod = {"suite": suite, "profile_1944": P, "et_study": et_study}[entry]
     assert mod.main(["--out", str(out)]) != 0
     assert not (tmp_path / "out").exists()
     assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("timer", ["measure_call", "measure_host_call"])
+def test_timers_refuse_cpu_inputs(timer):
+    fn = getattr(harness, timer)
+    xs = [torch.zeros(4, dtype=torch.int8) for _ in range(17)]
+    with pytest.raises(RuntimeError, match="inputs must be CUDA tensors"):
+        fn(lambda x: x, xs)
+    with pytest.raises(RuntimeError, match="inputs must be CUDA tensors"):
+        fn(lambda x: x, [])
+
+
+def test_et_study_points_equal_jax():
+    """The 13 operating points, the window and the repeats of
+    ``tools/run_et_pipelined.py``."""
+    spec = importlib.util.spec_from_file_location(
+        "run_et_pipelined", os.path.join(ROOT, "tools", "run_et_pipelined.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert et_study.CONFIGS == tool.CONFIGS and len(et_study.CONFIGS) == 13
+    assert (et_study.N_BATCH, et_study.REPEATS) == (tool.N_BATCH,
+                                                    tool.REPEATS)
 
 
 # ----------------------------------------------------------------- SASS --

@@ -1,7 +1,8 @@
-"""The CUDA kernels (the QC layered min-sum kernel, the gather kernel for
-any layers, the streamed kernel for QC codes and views beyond shared
-memory, and the probe kernels of the benchmark-suite path) against their
-plain PyTorch version, on the card.  Every test
+"""The CUDA kernels (the QC layered min-sum kernel, with and without its
+convergence mask, the gather kernel for any layers, the streamed kernel
+for QC codes and views beyond shared memory, and the probe kernels of the
+benchmark-suite path) against their plain PyTorch version, and the
+two-phase decoder against its CPU result, on the card.  Every test
 here needs an NVIDIA GPU and skips without one.
 
 On a machine with a card (and without jax, which ``tests/conftest.py``
@@ -30,6 +31,10 @@ from ldpcgputegra_tpu_torch.codes.registry import (
     make_random_qc_code,
 )
 from ldpcgputegra_tpu_torch.decoder import effective_code
+from ldpcgputegra_tpu_torch.decoder.twophase import (
+    make_twophase_decoder,
+    syndrome_fn,
+)
 from ldpcgputegra_tpu_torch.kernels import gather as G
 from ldpcgputegra_tpu_torch.kernels import layered as K
 from ldpcgputegra_tpu_torch.kernels import streamed as S
@@ -51,6 +56,15 @@ def _llrs(n, b, seed, std=0.8):
     rng = np.random.default_rng(seed)
     return np.clip(8.0 * rng.normal(-1.0, std, size=(b, n)), -31, 31).astype(
         np.int8)
+
+
+def _spread_llrs(n, b, seed):
+    """Noise spread over the batch (std 0.2 to 0.9), so that some frames
+    converge within a few iterations and some do not."""
+    rng = np.random.default_rng(seed)
+    std = np.linspace(0.2, 0.9, b)[:, None]
+    return np.clip(8.0 * (-1.0 + std * rng.standard_normal((b, n))), -31,
+                   31).astype(np.int8)
 
 
 @pytest.mark.parametrize("name", ["576x288", "1944x972", "2304x1152",
@@ -89,6 +103,65 @@ def test_kernel_every_tile(dev, tile, name, algo, minclamp, et):
         kb, ki = K.make_cuda_decoder(code, spec)(llr)
     pb, pi = make_layered_decoder(code, spec, dev)(llr)
     assert torch.equal(kb, pb) and int(ki) == int(pi)
+
+
+@pytest.mark.parametrize("tile", K.TILES)
+@pytest.mark.parametrize("name", ["1944x972", "randqc16"])
+@pytest.mark.parametrize("algo,minclamp", ALGOS)
+def test_kernel_mask_every_tile(dev, tile, name, algo, minclamp):
+    """The convergence mask in each build of the QC kernel, on a ragged
+    batch of converged and unconverged codewords: bits, ``iters_used`` and
+    ``ok`` against the plain decode and ``syndrome_fn``."""
+    code = (make_random_qc_code(20, 4, 12, Z=16, seed=5) if name == "randqc16"
+            else load_code(name))
+    spec = LayeredSpec(algo=algo, iters=4, minclamp=minclamp)
+    llr = torch.from_numpy(_spread_llrs(code.N, 203, seed=9)).to(dev)
+    with tiles.forced_layered(tile):
+        kb, ki, kok = K.make_cuda_decoder(code, spec, emit_mask=True)(llr)
+    pb, pi = make_layered_decoder(code, spec, dev)(llr)
+    pok = syndrome_fn(code, dev)(pb)
+    assert torch.equal(kb, pb) and int(ki) == int(pi)
+    assert kok.dtype == torch.bool and kok.shape == (203,)
+    assert torch.equal(kok, pok)
+    assert 0 < int(pok.sum()) < 203, "the batch must be mixed"
+
+
+def test_kernel_mask_refuses_early_termination(dev):
+    with pytest.raises(ValueError, match="early_term"):
+        K.make_cuda_decoder(load_code("576x288"),
+                            LayeredSpec(early_term=True), emit_mask=True)
+
+
+@pytest.mark.parametrize("name", ["576x288", "4000x2000", "16200x7560"])
+def test_twophase_on_the_card_matches_the_cpu(dev, name):
+    """``auto`` on the card (the QC kernel with its mask; the gather and
+    streamed kernels with the syndrome appended) against the plain version
+    on the CPU: bits and every stats value."""
+    code = load_code(name)
+    spec = LayeredSpec(algo="OMS", iters=10)
+    llr = torch.from_numpy(_spread_llrs(code.N, 96, seed=17))
+    got, got_stats = make_twophase_decoder(code, spec, k1=3, device=dev)(
+        llr.to(dev))
+    want, want_stats = make_twophase_decoder(code, spec, k1=3,
+                                             device="cpu")(llr)
+    assert torch.equal(got.cpu(), want)
+    assert got_stats == want_stats and got_stats["phase2_frames"] > 0
+
+
+def test_twophase_pipelined_on_the_card_matches_serial(dev):
+    code = load_code("576x288")
+    tp = make_twophase_decoder(code, LayeredSpec(algo="OMS", iters=8), k1=4,
+                               device=dev)
+    llrs = [torch.from_numpy(_llrs(code.N, 256, seed=11 + i)).to(dev)
+            for i in range(3)]
+    serial = [tp(x)[0] for x in llrs]
+    piped, agg = tp.pipelined(llrs)
+    fused, fagg = tp.pipelined_fused(llrs, tail=128)
+    big, bagg = tp.pipelined_fused(llrs, tail=256)
+    for a, b, c, d in zip(serial, piped, fused, big):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+    assert agg["frames"] == 3 * 256
+    assert fagg["overflows"] > 0 and bagg["overflows"] == 0
 
 
 def test_kernel_golden_vectors(dev):

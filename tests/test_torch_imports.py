@@ -18,7 +18,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import ldpcgputegra_tpu_torch.kernels.layered as K
-assert "ldpcgputegra_tpu_torch.sim.cli" in names and len(names) >= 20, names
+for name in ("sim.cli", "decoder.twophase", "bench.et_study"):
+    assert "ldpcgputegra_tpu_torch." + name in names, names
+assert len(names) >= 20, names
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib", "triton",
                                                "ldpcgputegra_tpu.")))
