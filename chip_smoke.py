@@ -12,8 +12,10 @@ the card's ceilings (``probes.cu``: ``probe_mix``, ``probe_peak``,
 Prints what the decode kernels compile to (SASS instructions per edge
 update, registers, stack, spills).  Holds the QC kernel against the
 committed golden vectors, and each kernel against its plain PyTorch
-version on the card, the QC and streamed kernels in every variant their
-picks can launch (``bench/tiles.py::check``); times both; then drives
+version on the card, in every variant their picks can launch
+(``bench/tiles.py::check``), the gather kernel also at all 8 (algorithm,
+minclamp) pairs; times both (the gather kernel also at 4000x2000 B=1024
+and 384, the batches of two-phase phase 2); then drives
 each kernel's path and checks that it went through the kernel: the
 decoders through ``run_sweep`` and the CLI (1944x972, 4000x2000,
 64800x32400), the probes through the benchmark suite
@@ -560,6 +562,7 @@ def main() -> int:
     phase_done(6)
 
     # 7. gather kernel vs the plain version on the card: bits and iters_used
+    # at all 8 (algorithm, minclamp) pairs, through the pick
     g_err = _hold(G.make_gather_decoder, "gather-vs-plain", [
         ("4000x2000", 4096, "OMS", "pre", False, 2.0),
         ("4000x2000", 4096, "OMS", "pre", True, 2.5),
@@ -571,17 +574,28 @@ def main() -> int:
         ("4000x2000", 1024, "MS", "post", True, 2.5),
         ("4000x2000", 1024, "NMS", "post", True, 2.5),
         ("4000x2000", 1024, "2NMS", "post", True, 2.5),
+        ("4000x2000", 384, "OMS", "post", True, 2.5),
+        ("4000x2000", 1000, "MS", "pre", True, 2.5),
+        ("4000x2000", 383, "NMS", "pre", True, 2.5),
+        ("1200x600", 1001, "2NMS", "pre", True, 3.5),
         ("200x100", 1024, "OMS", "pre", True, 4.0, "reference"),
-    ], dev, seed0=300)
+    ], dev, seed0=300, pick=lambda c, B: G.pick_tile(c, B, sm_count))
+    # every build of the kernel, each forced through its pick: every tile,
+    # 2 and 4 lanes a check
+    g_err = max(g_err, tiles.check("gather", dev))
     phase_done(7)
 
-    # 8. gather throughput at the suite's batches
+    # 8. gather throughput at the suite's batches, and at 4000x2000 at the
+    # batches of two-phase early termination's phase 2
+    g_shapes = (("4000x2000", 4096), ("4000x2000", 1024), ("4000x2000", 384),
+                ("8000x4000", 2048), ("20000x10000", 1024))
     g_times = {}
-    for name, B in (("4000x2000", 4096), ("8000x4000", 2048),
-                    ("20000x10000", 1024)):
+    for name, B in g_shapes:
         code = load_code(name)
         spec = LayeredSpec(algo="OMS", iters=10)
-        g_times[name] = _throughput(
+        print(f"[throughput] {name} B={B}: "
+              f"{G.pick_tile(code, B, sm_count)}")
+        g_times[name, B] = _throughput(
             G.make_gather_decoder(code, spec),
             make_layered_decoder(code, spec, dev), name, B, smi, dev,
             seed0=400)
@@ -703,9 +717,7 @@ def main() -> int:
     bounds = {}
     timed = ([("layered_minsum", n, B, k_times[n]) for n, B in
               (("2304x1152", 8192), ("1944x972", 1024))]
-             + [("gather_minsum", n, B, g_times[n]) for n, B in
-                (("4000x2000", 4096), ("8000x4000", 2048),
-                 ("20000x10000", 1024))]
+             + [("gather_minsum", n, B, g_times[n, B]) for n, B in g_shapes]
              + [("streamed_minsum", n, B, s_times[n]) for n, B in
                 (("64800x32400", 512), ("16200x7560", 1024),
                  ("64800x6480-dvbs2", 256), ("synthqc-256x128x6-z1024", 256))])
@@ -716,8 +728,8 @@ def main() -> int:
         prb, mix = (roofline_report(code, spec10, B, t, alu, rates["hbm"],
                                     hw=hw)
                     for alu in (rates["alu"], rates["alu_mix"]))
-        bounds[name] = (tab["t_roofline_ms"], tab["bound"],
-                        prb["t_roofline_ms"], mix["t_roofline_ms"])
+        bounds[name, B] = (tab["t_roofline_ms"], tab["bound"],
+                           prb["t_roofline_ms"], mix["t_roofline_ms"])
         print(f"[bound] {name} B={B} 10 it: {tab['edge_updates']:.4e} edge "
               f"updates x {tab['ops_per_edge']} ops; LLRs + bits "
               f"{tab['bytes'] / 1e6:.1f} MB = {tab['t_bytes_ms']:.4f} ms; "
@@ -736,8 +748,7 @@ def main() -> int:
                                        S.pick_tile(effective_code(code), B,
                                                    sm_count))
         else:
-            sym = (f"kernelILi{G.pick_tile(code, spec10)}ELi{G._dmax(code)}EE",
-                   G._dmax(code))
+            sym = sass.gather_symbol(code, G.pick_tile(code, B, sm_count))
         lib = {"layered_minsum": K, "streamed_minsum": S,
                "gather_minsum": G}[kname].build()["path"]
         alu_edge = sass.per_edge(lib, *sym)[1]
@@ -764,15 +775,15 @@ def main() -> int:
     # the probed rate of the decoder's own mix.
     spec = LayeredSpec(algo="OMS", iters=10, early_term=True)
     rows = [
-        ("layered_minsum", "1944x972", K, n_launch, max_err, "2304x1152",
-         (t_k, t_p)),
-        ("gather_minsum", "4000x2000", G, g_launch, g_err, "4000x2000",
-         g_times["4000x2000"]),
-        ("streamed_minsum", "64800x32400", S, s_launch, s_err, "64800x32400",
-         s_times["64800x32400"]),
+        ("layered_minsum", "1944x972", K, n_launch, max_err,
+         ("2304x1152", 8192), (t_k, t_p)),
+        ("gather_minsum", "4000x2000", G, g_launch, g_err, ("4000x2000", 4096),
+         g_times["4000x2000", 4096]),
+        ("streamed_minsum", "64800x32400", S, s_launch, s_err,
+         ("64800x32400", 512), s_times["64800x32400"]),
     ]
     kernels = []
-    for name, path_code, mod, launches, err, timed_code, (t, t_plain) in rows:
+    for name, path_code, mod, launches, err, timed, (t, t_plain) in rows:
         # K1's row: its launches on the two-phase path, its largest
         # disagreement over bits, iters_used and ok, and its time at k1=5
         # with and without the mask
@@ -791,10 +802,10 @@ def main() -> int:
             "max_abs_err": err,
             "ms": t * 1e3,
             "plain_ms": t_plain * 1e3,
-            "bound_ms": bounds[timed_code][0],
-            "bound_by": bounds[timed_code][1],
-            "probed_bound_ms": bounds[timed_code][2],
-            "probed_mix_bound_ms": bounds[timed_code][3],
+            "bound_ms": bounds[timed][0],
+            "bound_by": bounds[timed][1],
+            "probed_bound_ms": bounds[timed][2],
+            "probed_mix_bound_ms": bounds[timed][3],
             "library_ms": None,
             **mask,
         })

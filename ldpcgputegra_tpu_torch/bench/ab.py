@@ -6,8 +6,10 @@
 ``DIR`` is the root of another checkout of the repository (for example a
 parent commit unpacked with ``git archive``); it needs its
 ``ldpcgputegra_tpu_torch/`` package and ``ldpcgputegra_tpu/codes/data/``.
-Each tree times the QC kernel (``make_cuda_decoder``) and the gather
-kernel (``make_gather_decoder``) at the QC path's shapes, and the streamed
+Each tree times the QC kernel (``make_cuda_decoder``) at the QC path's
+shapes, the gather kernel (``make_gather_decoder``) at those and at the
+non-QC codes' (the suite's batches, and 4000x2000 at 1024 and 384, the
+batches of two-phase early termination's phase 2), and the streamed
 kernel (``make_streamed_decoder``) at the DVB-S2 path's, OMS 10 iterations,
 ET off (``measure_call``, CUDA events), in a fresh process of its own
 whose kernels are built from that tree's sources, in the order other,
@@ -35,6 +37,10 @@ SHAPES = [("layered", "2304x1152", 8192), ("layered", "1944x972", 1024),
           ("layered", "1944x972", 8192), ("layered", "2304x1152", 1024),
           ("gather", "2304x1152", 8192), ("gather", "1944x972", 1024),
           ("gather", "1944x972", 8192), ("gather", "2304x1152", 1024),
+          ("gather", "4000x2000", 4096), ("gather", "4000x2000", 1024),
+          ("gather", "4000x2000", 384), ("gather", "8000x4000", 2048),
+          ("gather", "20000x10000", 1024), ("gather", "2048x384", 8192),
+          ("gather", "1024x518", 8192), ("gather", "1200x600", 8192),
           ("streamed", "64800x32400", 512),
           ("streamed", "64800x6480-dvbs2", 256),
           ("streamed", "16200x7560", 1024),

@@ -11,9 +11,11 @@ codewords a thread packs; the code's degree where the edges run in loops
 nested in it, as in a QC kernel with runtime edge loops), plus a nested
 edge loop's body over its int8 accesses, is the count per edge update; the
 second count keeps those on the integer-ALU pipe (``vpu_probe.alu_pipe``), the unit of the
-probes' ceilings.  A static count: the check-node arithmetic of all four
-algorithms and both minclamp placements sits in the loop, and an unrolled
-slot above the code's degree is skipped at run time.  ``--root`` reads
+probes' ceilings.  A static count: in the QC and streamed kernels the
+check-node arithmetic of all four algorithms and both minclamp placements
+sits in the loop (the gather kernel builds one pair each, and its
+``gather_symbol`` names the pair), and an unrolled slot above the code's
+degree is skipped at run time.  ``--root`` reads
 another checkout's built libraries (``bench/ab.py`` builds them) beside
 this one's.  Needs ``cuobjdump`` (the CUDA toolkit).
 """
@@ -33,11 +35,12 @@ from ..kernels import _lib
 from .vpu_probe import _BRA, _FUNC, _INSTR, _PRED, alu_pipe
 
 __all__ = ["sass_text", "resources", "per_edge", "report", "VARIANTS",
-           "layered_symbol", "streamed_symbol"]
+           "layered_symbol", "streamed_symbol", "gather_symbol"]
 
 _RES = re.compile(r"Function\s+(\S+):\s*(.*)")
 
 _cache: dict[str, str] = {}
+_functions: dict[str, dict[str, list[tuple[int, str]]]] = {}
 
 
 def _tool() -> str:
@@ -70,12 +73,18 @@ def resources(path: str) -> dict[str, dict[str, int]]:
     return out
 
 
-def _function(sass: str, symbol: str) -> Optional[list[tuple[int, str]]]:
-    """(address, instruction text) of the function whose mangled name
-    contains ``symbol``."""
-    for block in re.split(r"(?=\n\s*Function\s*:)", sass):
-        m = _FUNC.search(block)
-        if m and symbol in m.group(1):
+def _function(path: str, symbol: str) -> Optional[list[tuple[int, str]]]:
+    """(address, instruction text) of the function in the library at
+    ``path`` whose mangled name contains ``symbol``.  The library's SASS is
+    split into functions once: the gather kernel's holds over a hundred."""
+    if path not in _functions:
+        _functions[path] = {}
+        for block in re.split(r"(?=\n\s*Function\s*:)", sass_text(path)):
+            m = _FUNC.search(block)
+            if m:
+                _functions[path][m.group(1)] = block
+    for name, block in _functions[path].items():
+        if symbol in name:
             return [(int(a, 16), t.strip()) for a, t in _INSTR.findall(block)]
     return None
 
@@ -110,7 +119,7 @@ def per_edge(path: str, symbol: str, edges: float) -> tuple[float, float]:
     (the compiler unrolls a runtime loop and adds remainder loops) counts
     its body over the int8 accesses in it, the largest of the loops that
     load and of those that store; ``NOP`` is not counted."""
-    fn = _function(sass_text(path), symbol)
+    fn = _function(path, symbol)
     if fn is None:
         raise RuntimeError(f"no function {symbol} in {path}")
     ops = {a: _op(t) for a, t in fn if _op(t) != "NOP"}
@@ -154,10 +163,11 @@ def _libs(root: str) -> dict[str, str]:
 # (kernel, mangled-name fragment, edges one pass of the check loop's own
 # instructions updates, what it is): the variants the picks take on the
 # main paths (2304x1152 B=8192 and 1944x972 B=1024; 64800x32400 B=512,
-# 64800x6480-dvbs2 B=256, 16200x7560 B=1024 and synthqc B=256; 4000x2000
-# B=4096), and the builds of an earlier design where another checkout is
-# read (one QC kernel with runtime edge loops, a streamed kernel templated on
-# the tile and DMAX only)
+# 64800x6480-dvbs2 B=256, 16200x7560 B=1024 and synthqc B=256; the gather
+# kernel's below), and the builds of an earlier design where another
+# checkout is read (one QC kernel with runtime edge loops, a streamed kernel
+# templated on the tile and DMAX only, a gather kernel with the algorithm
+# chosen at run time)
 VARIANTS = [
     ("layered_minsum", "kernelILi16ELi4ELi8EE", 32, "tile 16, 4 a thread"),
     ("layered_minsum", "kernelILi8ELi4ELi8EE", 32, "tile 8, 4 a thread"),
@@ -176,7 +186,18 @@ VARIANTS = [
      "device-memory APP, tile 2, DMAX 8, one lane a check"),
     ("streamed_minsum", "kernelILi2ELi32EEEv", 32,
      "device-memory APP, tile 2, DMAX 32, one lane a check"),
-    ("gather_minsum", "kernelILi8ELi8EEEv", 8, "tile 8, DMAX 8"),
+    ("gather_minsum", "kernelILi8ELi8EEEv", 8, "tile 8, DMAX 8, runtime algorithm"),
+    # OMS with minclamp 'pre' (ALGO 1, PRE true): the picks at 4000x2000
+    # B=4096 and at B <= 1024 (20000x10000, phase 2), at 1200x600 and at
+    # 2048x384 B=8192
+    ("gather_minsum", "kernelILi16ELi2ELi8ELi1ELb1EE", 16,
+     "tile 16, 4 a thread, 2 lanes a check, DMAX 8, OMS pre"),
+    ("gather_minsum", "kernelILi4ELi2ELi8ELi1ELb1EE", 16,
+     "tile 4, 4 a thread, 2 lanes a check, DMAX 8, OMS pre"),
+    ("gather_minsum", "kernelILi32ELi4ELi16ELi1ELb1EE", 16,
+     "tile 32, 4 a thread, 4 lanes a check, DMAX 16, OMS pre"),
+    ("gather_minsum", "kernelILi32ELi4ELi32ELi1ELb1EE", 32,
+     "tile 32, 4 a thread, 4 lanes a check, DMAX 32, OMS pre"),
 ]
 
 
@@ -187,6 +208,19 @@ def layered_symbol(code, tile: int) -> tuple[str, int]:
 
     dmax, pack = layered._dmax(code), layered.pack(code)
     return f"kernelILi{tile}ELi{pack}ELi{dmax}EE", dmax * pack
+
+
+def gather_symbol(code, v, algo: str = "OMS",
+                  minclamp: str = "pre") -> tuple[str, int]:
+    """The same for the gather kernel's variant ``v``, built for ``algo``
+    and ``minclamp``: its check loop updates DMAX / k edges of four
+    codewords."""
+    from ..kernels import gather
+
+    dmax = gather._dmax(code)
+    return (f"kernelILi{v.tile}ELi{v.k}ELi{dmax}"
+            f"ELi{_lib.ALGO[algo]}ELb{int(minclamp == 'pre')}EE",
+            dmax // v.k * gather.W)
 
 
 def streamed_symbol(code, v) -> tuple[str, int]:
@@ -205,7 +239,7 @@ def report(root: str, log=print) -> dict:
     for kernel, path in _libs(root).items():
         res = resources(path)
         for k, symbol, edges, what in VARIANTS:
-            if k != kernel or _function(sass_text(path), symbol) is None:
+            if k != kernel or _function(path, symbol) is None:
                 continue
             n_all, n_alu = per_edge(path, symbol, edges)
             r = next((v for f, v in res.items() if symbol in f), {})

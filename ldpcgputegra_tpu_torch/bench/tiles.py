@@ -1,21 +1,23 @@
-"""Variant sweep of the QC kernel (``kernels/layered.py``) and the streamed
-kernel (``kernels/streamed.py``) on the card.
+"""Variant sweep of the QC kernel (``kernels/layered.py``), the streamed
+kernel (``kernels/streamed.py``) and the gather kernel
+(``kernels/gather.py``) on the card.
 
-    python -m ldpcgputegra_tpu_torch.bench.tiles [--kernel layered|streamed|both]
-        [--check] [--iters 10]
+    python -m ldpcgputegra_tpu_torch.bench.tiles
+        [--kernel layered|streamed|gather|all] [--check] [--iters 10]
 
 For each code and batch of a kernel's path and each variant the kernel
 builds for that code, prints the kernel's ms per decode at OMS, ET off
 (``measure_call``, CUDA events), the variant its pick takes marked with a
 ``*``, and the card's name and power limit.  The QC kernel's variants are
 its tiles (codewords per CTA; four a thread at DMAX 8); the streamed
-kernel's are
-(APP placement, tile, lanes per check).  ``--check`` first holds every
-variant against the plain version on the card (bits and ``iters_used``,
-ET on, a ragged batch).  Each variant is forced by replacing the module's
-``pick_tile`` for the length of its calls (``forced_layered``,
-``forced_streamed``).  The picks' policies are read from these tables
-(``PERF.md`` §6).  Needs a CUDA device.
+kernel's are (APP placement, tile, lanes per check); the gather kernel's
+(tile, lanes per check), four codewords a thread.  ``--check`` first holds
+every variant against the plain version on the card (bits and
+``iters_used``, ET on, ragged batches).  Each variant is forced by
+replacing the module's ``pick_tile`` for the length of its calls
+(``forced_layered``, ``forced_streamed``, ``forced_gather``).  The picks'
+policies are read from these tables (``PERF.md`` §6).  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from ..codes.registry import load_code
 from ..decoder import effective_code
-from ..kernels import _lib, layered, streamed
+from ..kernels import _lib, gather, layered, streamed
 from ..ops.layered import LayeredSpec, make_layered_decoder
 from .harness import measure_call
 
@@ -40,10 +42,25 @@ LAYERED_SHAPES = [("2304x1152", 1024), ("2304x1152", 8192),
 SHAPES = [("64800x32400", 512), ("64800x32400", 2048), ("16200x7560", 1024),
           ("64800x6480-dvbs2", 256), ("64800x6480-dvbs2", 1024),
           ("synthqc-256x128x6-z1024", 256)]
+# the gather kernel's non-QC codes at the suite's batches, and at smaller
+# ones: 4000x2000 at those of two-phase early termination's phase 2
+GATHER_SHAPES = [("4000x2000", 4096), ("4000x2000", 1024), ("4000x2000", 384),
+                 ("4000x2000", 128), ("8000x4000", 2048),
+                 ("20000x10000", 1024), ("9972x4986", 2048),
+                 ("4896x2448", 4096), ("2640x1320", 4096), ("2048x384", 8192),
+                 ("1024x518", 8192), ("1200x600", 8192), ("816x408", 8192),
+                 ("200x100", 16384), ("2640x1320", 1024), ("1200x600", 1024)]
 LAYERED_CHECKS = [("576x288", 300, 2.5), ("1944x972", 1000, 2.0),
                   ("155x93", 77, 3.0)]
+# ragged batches at each DMAX (8, 16, 32), and tile 4 where only 8 and 4 fit
+GATHER_CHECKS = [("200x100", 77, 3.0), ("4000x2000", 301, 2.5),
+                 ("816x408", 99, 3.0), ("2048x384", 45, 4.0),
+                 ("20000x10000", 37, 2.5)]
 CHECKS = [("16200x10800", 300, 3.0), ("64800x32400", 256, 1.5),
           ("64800x6480-dvbs2", 64, 7.0), ("synthqc-256x128x6-z1024", 64, 2.5)]
+
+
+KERNELS = ("layered", "streamed", "gather")
 
 
 def llrs(code, B: int, snr_db: float, seed: int) -> torch.Tensor:
@@ -84,16 +101,30 @@ def forced_streamed(variant: streamed.Variant):
         streamed.pick_tile = picked
 
 
+@contextlib.contextmanager
+def forced_gather(variant: gather.Variant):
+    """Within the block, every gather decoder launches ``variant``."""
+    picked = gather.pick_tile
+    gather.pick_tile = lambda *args, **kwargs: variant
+    try:
+        yield
+    finally:
+        gather.pick_tile = picked
+
+
 def _label(v) -> str:
     if isinstance(v, streamed.Variant):
         return f"{v.placement}/{v.tile}/k{v.k}"
+    if isinstance(v, gather.Variant):
+        return f"{v.tile}/k{v.k}"
     return str(v)
 
 
 def _cases(kernel: str, check: bool):
     """(code, B, snr, decoder maker, variants, forcing, the pick at B)."""
     shapes = {"layered": LAYERED_CHECKS if check else LAYERED_SHAPES,
-              "streamed": CHECKS if check else SHAPES}[kernel]
+              "streamed": CHECKS if check else SHAPES,
+              "gather": GATHER_CHECKS if check else GATHER_SHAPES}[kernel]
     for row in shapes:
         name, B = row[0], row[1]
         snr = row[2] if check else 2.0
@@ -103,17 +134,21 @@ def _cases(kernel: str, check: bool):
             yield (code, B, snr, layered.make_cuda_decoder,
                    layered_variants(code), forced_layered,
                    layered.pick_tile(code, B, sms))
-        else:
+        elif kernel == "streamed":
             yield (code, B, snr, streamed.make_streamed_decoder,
                    streamed.variants(code), forced_streamed,
                    streamed.pick_tile(code, B, sms))
+        else:
+            yield (code, B, snr, gather.make_gather_decoder,
+                   gather.variants(code), forced_gather,
+                   gather.pick_tile(code, B, sms))
 
 
 def check(kernel: str, dev, log=print) -> int:
-    """Hold every variant of ``kernel`` ("layered" or "streamed") against
-    the plain version on the card at the check shapes (bits and
-    ``iters_used``, ET on, ragged batches); returns the largest |bit
-    difference| (0), raises on a disagreement."""
+    """Hold every variant of ``kernel`` ("layered", "streamed" or
+    "gather") against the plain version on the card at the check shapes
+    (bits and ``iters_used``, ET on, ragged batches); returns the largest
+    |bit difference| (0), raises on a disagreement."""
     for code, B, snr, make, vs, force, _ in _cases(kernel, True):
         spec = LayeredSpec(iters=6, early_term=True)
         llr = llrs(code, B, snr, seed=1).to(dev)
@@ -135,8 +170,7 @@ def check(kernel: str, dev, log=print) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("layered", "streamed", "both"),
-                    default="both")
+    ap.add_argument("--kernel", choices=KERNELS + ("all",), default="all")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args(argv)
@@ -148,10 +182,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"[tiles] {smi}")
-    kernels = ("layered", "streamed") if args.kernel == "both" else (
-        args.kernel,)
+    kernels = KERNELS if args.kernel == "all" else (args.kernel,)
     for kernel in kernels:
-        info = (layered if kernel == "layered" else streamed).build()
+        info = {"layered": layered, "streamed": streamed,
+                "gather": gather}[kernel].build()
         print(f"[tiles] {kernel} built in {info['seconds']:.2f} s")
     for kernel in kernels if args.check else ():
         check(kernel, dev)

@@ -20,7 +20,8 @@ import torch
 from .code import DegreeClass, LdpcCode, committed_edges
 from .schedule import build_layers
 
-__all__ = ["code_from_numpy", "qc_tables", "edge_tables", "PINNED"]
+__all__ = ["code_from_numpy", "qc_tables", "edge_tables", "layer_shapes",
+           "PINNED"]
 
 PINNED = -1  # edge_tables' wide VN id of a deficient-circulant edge
 
@@ -128,3 +129,10 @@ def edge_tables(code: LdpcCode, spec, device,
 
     return {"row_ptr": t(row_ptr), "n_checks": t(n_checks), "deg": t(deg),
             "vn": t(vn, vn.dtype), "perm": t(perm)}
+
+
+def layer_shapes(code: LdpcCode, schedule: str = "auto") -> list[tuple]:
+    """(committed checks, degree) of each layer of the schedule: the layers
+    that ``edge_tables`` lays out."""
+    return [committed_edges(lay)[0].shape
+            for lay in build_layers(code, schedule)]

@@ -1,7 +1,8 @@
 // Check-node arithmetic shared by the layered min-sum kernels
-// (layered_minsum.cu, gather_minsum.cu): the integer-exact forms of the
-// reference's CUDA_{MS,OMS,NMS,2NMS}_SIMD.cu, identical to the plain
-// PyTorch version (ops/layered.py::_cn_update, _f_consts).
+// (layered_minsum.cu, streamed_minsum.cu, gather_minsum.cu): the
+// integer-exact forms of the reference's CUDA_{MS,OMS,NMS,2NMS}_SIMD.cu,
+// identical to the plain PyTorch version (ops/layered.py::_cn_update,
+// _f_consts).
 //
 // For one check with contributions c_j = clamp(APP - msg, +-sat_var):
 //   a_j     = |clamp(c_j, +-sat_msg)| ('pre') or |c_j| ('post')
@@ -67,6 +68,51 @@ __device__ __forceinline__ int cn_msg(int c, int parity, int min1, int f1,
   const int mag = (cn_abs(c, s) == min1) ? f1 : f2;
   const int m = (parity ^ (c > 0)) ? mag : -mag;
   return s.pre ? clampi(m, s.sat_msg) : m;
+}
+
+// Compile-time forms of cn_abs, cn_f and cn_msg (gather_minsum.cu): the
+// algorithm and the minclamp placement are template parameters, so a kernel
+// built for one pair carries that pair's arithmetic alone, with no per-edge
+// select; the constants (offset, nms_f, nms_f2, sat_var, sat_msg) stay
+// run-time fields of the CnSpec, whose algo and pre these forms ignore.
+// Under 'pre', cn_f<ALGO, true> clamps f1 and f2 to +-sat_msg and
+// cn_msg<ALGO, true> does not clamp the message: the clamp is odd
+// (clampi(-x, s) == -clampi(x, s)), so the pair computes what cn_f and
+// cn_msg compute.  For MS and OMS f1 and f2 already lie in [0, sat_msg],
+// so there the clamp is left out.
+
+template <int ALGO, bool PRE>
+__device__ __forceinline__ int cn_abs(int c, const CnSpec& s) {
+  // |clampi(c, sat_msg)| == min(|c|, sat_msg), as sat_msg > 0
+  if constexpr (PRE) return min(abs(c), s.sat_msg);
+  else return abs(c);
+}
+
+template <int ALGO, bool PRE>
+__device__ __forceinline__ void cn_f(int min1, int min2, const CnSpec& s,
+                                     int& f1, int& f2) {
+  if constexpr (ALGO == MS) {
+    f1 = min(min2, s.sat_msg);
+    f2 = min(min1, s.sat_msg);
+  } else if constexpr (ALGO == OMS) {
+    f1 = min(max(min2 - s.offset, 0), s.sat_msg);
+    f2 = min(max(min1 - s.offset, 0), s.sat_msg);
+  } else {
+    f1 = (min2 * (ALGO == NMS ? s.nms_f : s.nms_f2)) >> 5;
+    f2 = (min1 * s.nms_f) >> 5;
+    if constexpr (PRE) {
+      f1 = clampi(f1, s.sat_msg);
+      f2 = clampi(f2, s.sat_msg);
+    }
+  }
+}
+
+// f1 and f2 from cn_f<ALGO, PRE>
+template <int ALGO, bool PRE>
+__device__ __forceinline__ int cn_msg(int c, bool parity, int min1, int f1,
+                                      int f2, const CnSpec& s) {
+  const int mag = (cn_abs<ALGO, PRE>(c, s) == min1) ? f1 : f2;
+  return (parity != (c > 0)) ? mag : -mag;
 }
 
 }  // namespace minsum

@@ -1,5 +1,6 @@
 """What the kernel wrappers share: building a ``csrc/`` source into a
-shared library at first use, and checking a decoder's input.
+shared library at first use, checking a decoder's input, and the cost
+model by which the gather and streamed kernels pick a variant.
 
 A library is compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a``
 into a build directory (``ldpcgputegra_tpu_torch/_build/``, git-ignored),
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from typing import Callable, Iterable, Sequence
 
 import torch
 
@@ -45,6 +47,35 @@ def ctas_per_sm(threads: int, smem: int, reg_ctas: int) -> int:
     kernel's launch bounds)."""
     return max(0, min(SM_THREADS // threads, reg_ctas,
                       SM_SMEM // (smem + CTA_SMEM_RESERVED)))
+
+
+def pick_by_rounds(variants: Iterable, B: int, sms: int,
+                   shapes: Sequence[tuple], lanes: Callable,
+                   per_sm: Callable, round_cost: Callable,
+                   prefer: Callable):
+    """The variant (a tuple with a ``tile``) of the least modelled time for
+    a batch of ``B`` on a card of ``sms`` SMs; None when there is none.
+
+    A layer of G checks of degree d takes r = ceil(G / lanes(v)) rounds of
+    ``round_cost(v, d, busy)`` each, busy = resident x G / (r x lanes(v)):
+    the CTAs an SM holds, resident = min(per_sm(v), ceil(CTAs / sms)),
+    times the share of a round's lanes at work.  The CTAs, ceil(B / tile),
+    run ceil(CTAs / (sms x per_sm(v))) waves after one another, and the
+    time is waves x the rounds' sum.  Of equal times, the least
+    ``prefer(v)``, then the first in ``variants``."""
+    def cost(v):
+        ctas = -(-B // v.tile)
+        n = per_sm(v)
+        waves = -(-ctas // (sms * n))
+        resident = min(n, -(-ctas // sms))
+        width = lanes(v)
+        rounds = 0.0
+        for G, d in shapes:
+            r = -(-G // width)
+            rounds += r * round_cost(v, d, resident * G / (r * width))
+        return waves * rounds, prefer(v)
+
+    return min(variants, key=cost, default=None)
 
 
 def sm_count(device) -> int:

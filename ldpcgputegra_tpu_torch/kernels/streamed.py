@@ -34,9 +34,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from ..codes.code import LdpcCode, committed_edges
-from ..codes.convert import edge_tables
-from ..codes.schedule import build_layers
+from ..codes.code import LdpcCode
+from ..codes.convert import edge_tables, layer_shapes
 from ..ops.layered import LayeredSpec, make_layered_decoder, unsupported_reason
 from . import _lib
 
@@ -121,39 +120,27 @@ def variants(code: LdpcCode) -> list[Variant]:
     return out
 
 
-def layer_shapes(code: LdpcCode, schedule: str = "auto") -> list[tuple]:
-    """(committed checks, degree) of each layer of the schedule."""
-    return [committed_edges(lay)[0].shape
-            for lay in build_layers(code, schedule)]
-
-
 def pick_tile(code: LdpcCode, B: int, sms: int = SMS_H100,
               schedule: str = "auto",
               shapes: Optional[Sequence[tuple]] = None) -> Variant:
-    """The variant for a batch of ``B`` on a card of ``sms`` SMs.
+    """The variant for a batch of ``B`` on a card of ``sms`` SMs, by
+    ``_lib.pick_by_rounds``.
 
     A layer of G committed checks of degree d takes ceil(G / lanes)
     rounds, lanes = 512 / (tile x k), each costing ``ROUND_COST`` of its
-    APP placement and ceil(d / k) x ``EDGE_COST`` of issue; the CTAs run
-    ceil(CTAs / (sms x ctas_per_sm)) after one another.  The pick has the
-    least product, the APP in shared memory and the narrowest tile of
-    equals.
+    APP placement and ceil(d / k) x ``EDGE_COST`` of issue.  The pick has
+    the least waves x rounds; of equals, the APP in shared memory, then
+    the narrowest tile.
     The variants against ms on the H100 are ``PERF.md`` §6's table, from
     ``bench/tiles.py``."""
     shapes = layer_shapes(code, schedule) if shapes is None else shapes
-    best, best_cost = None, None
-    for v in variants(code):
-        lanes = NTHREADS // (v.tile * v.k)
-        waves = -(-(-(-B // v.tile)) // (sms * ctas_per_sm(code, v)))
-        rounds = sum(-(-G // lanes) * (ROUND_COST[v.placement]
-                                       + EDGE_COST * -(-d // v.k))
-                     for G, d in shapes)
-        cost = waves * rounds
-        if best_cost is None or cost < best_cost or (
-                cost == best_cost and v.placement == best.placement
-                and v.tile < best.tile):
-            best, best_cost = v, cost
-    return best
+    return _lib.pick_by_rounds(
+        variants(code), B, sms, shapes,
+        lanes=lambda v: NTHREADS // (v.tile * v.k),
+        per_sm=lambda v: ctas_per_sm(code, v),
+        round_cost=lambda v, d, busy: (ROUND_COST[v.placement]
+                                       + EDGE_COST * -(-d // v.k)),
+        prefer=lambda v: (v.placement != "smem", v.tile))
 
 
 def build() -> dict:

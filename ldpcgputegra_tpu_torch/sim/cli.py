@@ -189,17 +189,19 @@ def _print_info(cfg: SweepConfig) -> None:
         print(f"(II) backend      : none ({e})")
         return
     print(f"(II) backend      : {backend}")
-    if backend == "cuda-gather":
-        from ..codes.schedule import build_layers
-        from ..kernels.gather import pick_tile, smem_bytes
-
-        tile = pick_tile(code, _spec(cfg))
-        print(f"(II) gather       : {len(build_layers(code, cfg.schedule))} "
-              f"{cfg.schedule} layers, {tile} codewords per CTA, "
-              f"{smem_bytes(code.N, tile)} B shared memory")
     sms = (torch.cuda.get_device_properties(device).multi_processor_count
            if device.type == "cuda" and torch.cuda.is_available()
            else SMS_H100)
+    if backend == "cuda-gather":
+        from ..codes.convert import layer_shapes
+        from ..kernels import gather
+
+        shapes = layer_shapes(code, cfg.schedule)
+        v = gather.pick_tile(code, cfg.batch, sms, cfg.schedule, shapes)
+        print(f"(II) gather       : {len(shapes)} {cfg.schedule} layers, "
+              f"{v.tile} codewords per CTA at batch {cfg.batch} on {sms} SMs "
+              f"(w={gather.W} a thread, k={v.k} lanes a check), "
+              f"{gather.smem_bytes(code, v)} B shared memory")
     if backend == "cuda":
         from ..kernels import layered
 

@@ -83,6 +83,10 @@ def test_kernel_matches_plain(dev, name, algo, minclamp, et):
 
 
 ALGOS = [("OMS", "pre"), ("MS", "post"), ("NMS", "pre"), ("2NMS", "post")]
+# (tile, code, batch) where the gather kernel's pick takes each tile on an
+# H100's 132 SMs
+GATHER_PICKS = [(32, "816x408", 8192), (16, "4000x2000", 4096),
+                (8, "8000x4000", 2048), (4, "4000x2000", 384)]
 
 
 @pytest.mark.parametrize("tile", K.TILES)
@@ -207,17 +211,78 @@ def test_gather_kernel_matches_plain(dev, name, algo, minclamp, et):
     assert int(ki) == int(pi)
 
 
-@pytest.mark.parametrize("tile,name", [(32, "200x100"), (16, "1024x518"),
-                                       (8, "4000x2000")])
-def test_gather_kernel_every_tile(dev, tile, name):
-    """Each tile width the kernel ships, through a code that picks it."""
+@pytest.mark.parametrize("tile,name,B", GATHER_PICKS)
+def test_gather_kernel_every_tile(dev, tile, name, B):
+    """Each tile width the kernel ships, through a code and a batch whose
+    pick takes it."""
     code = load_code(name)
     spec = LayeredSpec(iters=5, early_term=True)
-    assert G.pick_tile(code, spec) == tile
-    llr = torch.from_numpy(_llrs(code.N, 100, seed=6, std=0.6)).to(dev)
+    assert G.pick_tile(code, B, G.SMS_H100).tile == tile
+    llr = torch.from_numpy(_llrs(code.N, B, seed=6, std=0.6)).to(dev)
     kb, ki = G.make_gather_decoder(code, spec)(llr)
     pb, pi = make_layered_decoder(code, spec, dev)(llr)
     assert torch.equal(kb, pb) and int(ki) == int(pi)
+
+
+# every build, on a code of its DMAX: irregular (degrees 7 and 8, 8 and 9)
+# at DMAX 8 and 16, degree 32 at DMAX 32
+_GATHER_BUILDS = [(name, v) for name, dmax in (("1024x518", 8),
+                                                ("1200x600", 16),
+                                                ("2048x384", 32))
+                  for v in G.BUILDS[dmax]]
+ALL_PAIRS = [(a, m) for a in ("MS", "OMS", "NMS", "2NMS")
+             for m in ("pre", "post")]
+
+
+@pytest.mark.parametrize("name,variant", _GATHER_BUILDS, ids=str)
+@pytest.mark.parametrize("algo,minclamp", ALL_PAIRS)
+@pytest.mark.parametrize("et", [False, True])
+def test_gather_kernel_every_variant(dev, name, variant, algo, minclamp, et):
+    """Each build of the gather kernel at all 8 (algorithm, minclamp)
+    pairs, ET on and off, forced through its pick as ``bench/tiles.py``
+    does, on a ragged batch (37: a partial tile, and a partial packed word
+    where a thread holds four codewords)."""
+    code = load_code(name)
+    assert variant in G.variants(code)
+    spec = LayeredSpec(algo=algo, iters=6, minclamp=minclamp, early_term=et)
+    llr = torch.from_numpy(_spread_llrs(code.N, 37, seed=9)).to(dev)
+    with tiles.forced_gather(variant):
+        kb, ki = G.make_gather_decoder(code, spec)(llr)
+    pb, pi = make_layered_decoder(code, spec, dev)(llr)
+    assert torch.equal(kb, pb) and int(ki) == int(pi)
+
+
+@pytest.mark.parametrize("B", [1, 2, 5, 6, 7, 33, 130])
+def test_gather_kernel_partial_packed_word(dev, B):
+    """Four codewords a thread at tile 4 and 8, where the last tile holds
+    1-3 codewords of a packed word; ET freezes codewords inside words."""
+    code = load_code("4000x2000")
+    spec = LayeredSpec(algo="2NMS", iters=8, minclamp="pre", early_term=True)
+    llr = torch.from_numpy(_spread_llrs(code.N, B, seed=B)).to(dev)
+    pb, pi = make_layered_decoder(code, spec, dev)(llr)
+    for v in (G.Variant(4, 2), G.Variant(8, 2)):
+        with tiles.forced_gather(v):
+            kb, ki = G.make_gather_decoder(code, spec)(llr)
+        assert torch.equal(kb, pb) and int(ki) == int(pi), v
+
+
+def test_gather_decoder_picks_per_call(dev):
+    """The decoder reads the batch at each call: phase 2's few hundred
+    frames get their own pick from the same decoder, and a batch size it
+    has seen reuses its pick."""
+    code = load_code("4000x2000")
+    dec = G.make_gather_decoder(code, LayeredSpec(iters=2))
+    seen = []
+    picked = G.pick_tile
+    G.pick_tile = lambda c, B, *a, **kw: seen.append(B) or picked(c, B, *a,
+                                                                   **kw)
+    try:
+        for B in (4096, 384, 4096, 384):
+            dec(torch.from_numpy(_llrs(code.N, B, seed=B)).to(dev))
+    finally:
+        G.pick_tile = picked
+    assert seen == [4096, 384]
+    assert picked(code, 384, G.SMS_H100) != picked(code, 4096, G.SMS_H100)
 
 
 def test_gather_kernel_counts_launches_and_checks_inputs(dev):

@@ -6,8 +6,9 @@ same seeded numpy int8 LLRs (1200x600 here; the other codes in
 ``test_torch_gather_jax.py``, 2048x384 in ``test_torch_gather_deg32.py``).
 Also pinned here: the ``auto`` routing of
 every registry code on a CUDA device (decided without a card), staircase
-detection against the JAX package, the gather kernel's fit function, its
-tables, and its wrapper on CPU tensors.
+detection against the JAX package, the gather kernel's pick at the suite's
+batches (its builds and the pick in full: ``test_torch_gather_pick.py``),
+its tables, and its wrapper on CPU tensors.
 """
 
 import numpy as np
@@ -40,11 +41,20 @@ CUDA = torch.device("cuda")
 QC = ["1248x624", "155x93", "1944x972", "2304x1152", "576x288",
       "802_11e_1920x960", "802_11e_2304x1152", "802_11e_576x288",
       "802_11n-1944x972"]
-# non-QC codes and the tile (codewords per CTA) the gather kernel takes
+# non-QC codes, their suite batch, and the variant (codewords per CTA,
+# lanes a check) the gather kernel's pick takes there on an H100's 132 SMs
 NON_QC_TILE = {
-    "1024x518": 16, "1200x600": 16, "200x100": 32, "2048x384": 8,
-    "2640x1320": 8, "4000x2000": 8, "4896x2448": 8, "816x408": 16,
-    "8000x4000": 8, "9972x4986": 8, "20000x10000": 8,
+    "1024x518": (8192, G.Variant(32, 4)),
+    "1200x600": (8192, G.Variant(32, 4)),
+    "200x100": (16384, G.Variant(32, 4)),
+    "2048x384": (8192, G.Variant(32, 4)),
+    "2640x1320": (4096, G.Variant(16, 2)),
+    "4000x2000": (4096, G.Variant(16, 2)),
+    "4896x2448": (4096, G.Variant(16, 2)),
+    "816x408": (8192, G.Variant(32, 2)),
+    "8000x4000": (2048, G.Variant(8, 2)),
+    "9972x4986": (2048, G.Variant(8, 2)),
+    "20000x10000": (1024, G.Variant(4, 2)),
 }
 STAIRCASE = ["16200x10800", "16200x7560", "64800x21600", "64800x32400",
              "64800x32400-dvbs2", "64800x6480-dvbs2", "64800x7200-dvbs2"]
@@ -118,30 +128,28 @@ def test_routing_of_schedules_on_qc_codes():
 
 @pytest.mark.parametrize("name", sorted(NON_QC_TILE))
 def test_fit_picks_the_tile(name):
-    """The narrowest fitting tile whose lanes (512 / tile) are at most
-    twice the largest layer's checks, charged its own shared-memory
-    footprint."""
+    """The variant the pick takes at the code's suite batch on 132 SMs, a
+    build that takes the code, charged its own shared-memory footprint."""
     code = load_code(name)
     spec = LayeredSpec()
-    tile = G.pick_tile(code, spec)
-    assert tile == NON_QC_TILE[name]
+    B, want = NON_QC_TILE[name]
+    v = G.pick_tile(code, B, 132)
+    assert v == want
     assert G.kernel_unsupported_reason(code, spec) is None
-    assert G.smem_bytes(code.N, tile) == ((code.N * tile + 15) & ~15) + 4 * tile
-    assert G.smem_bytes(code.N, tile) <= SMEM_MAX
-    max_checks = max(lay.n_checks for lay in build_layers(code, "auto"))
-    assert G.NTHREADS // tile <= 2 * max_checks or tile == G.TILES[-1]
-    for t in G.TILES:
-        if t < tile:
-            fits = G.smem_bytes(code.N, t) <= SMEM_MAX
-            assert G.NTHREADS // t > 2 * max_checks or not fits
+    assert v in G.variants(code)
+    assert G.smem_bytes(code, v) == ((code.N * v.tile + 15) & ~15) + 4 * v.tile
+    assert G.smem_bytes(code, v) <= SMEM_MAX
 
 
 def test_registry_codes_reach_every_tile():
-    """Each tile the kernel ships is the pick of some registry code, so the
-    card tests, which run 200x100, 1024x518 and 4000x2000, launch all."""
-    assert set(NON_QC_TILE.values()) == set(G.TILES)
-    assert {NON_QC_TILE[n] for n in ("200x100", "1024x518", "4000x2000")} == \
-        set(G.TILES)
+    """Each tile the kernel ships is the pick of some registry code at its
+    suite batch, or of 4000x2000 at a batch of two-phase phase 2, so the
+    card tests, which run those codes, launch all."""
+    picks = {G.pick_tile(load_code(n), B, 132).tile
+             for n, (B, _) in NON_QC_TILE.items()}
+    picks |= {G.pick_tile(load_code("4000x2000"), B, 132).tile
+              for B in (128, 384)}
+    assert picks == set(G.TILES)
 
 
 def test_colored_layers_are_computed_once_per_code():
@@ -160,8 +168,13 @@ def test_colored_layers_are_computed_once_per_code():
 
 
 def test_fit_refuses_codes_beyond_an_8_codeword_tile():
-    code = make_random_regular_code(30000, 15000, 6, seed=1)
-    assert G.pick_tile(code, LayeredSpec()) == 0
+    """The smallest tile is 4 codewords: up to N = 58104 its APP fits
+    shared memory (30000 bits, beyond tile 8, now decode at tile 4).  The
+    name is historical, from when the smallest tile was 8 codewords; the
+    limit tested is tile 4's."""
+    assert G.variants(make_random_regular_code(30000, 15000, 6, seed=1))
+    code = make_random_regular_code(58200, 29100, 6, seed=1)
+    assert G.variants(code) == [] and G.pick_tile(code, 1024) is None
     assert "does not fit shared memory" in G.kernel_unsupported_reason(
         code, LayeredSpec())
 
@@ -212,7 +225,7 @@ def test_gather_wrapper_checks():
     with pytest.raises(ValueError, match="unknown algo"):
         G.make_gather_decoder(code, LayeredSpec(algo="BP"))
     with pytest.raises(NotImplementedError, match="does not fit shared memory"):
-        G.make_gather_decoder(make_random_regular_code(30000, 15000, 6, seed=1),
+        G.make_gather_decoder(make_random_regular_code(58200, 29100, 6, seed=1),
                               LayeredSpec())
     # a QC view is refused by the kernel itself; the raw staircase code
     # decodes in its own (colored) layers, as JAX's gather path takes it
@@ -248,7 +261,8 @@ def test_cli_info_resolves_the_gather_backend(capsys):
     cli.main(["--code", "4000x2000", "--info", "--device", "cuda"])
     out = capsys.readouterr().out
     assert "backend      : cuda-gather" in out
-    assert "11 auto layers, 8 codewords per CTA, 32032 B" in out
+    assert ("11 auto layers, 4 codewords per CTA at batch 1024 on 132 SMs "
+            "(w=4 a thread, k=2 lanes a check), 16016 B shared memory") in out
     cli.main(["--code", "16200x7560", "--info", "--device", "cuda"])
     out = capsys.readouterr().out
     assert "backend      : cuda-streamed" in out
