@@ -26,7 +26,14 @@ then the two-phase early-termination path (``decoder/twophase.py``): the
 QC kernel's convergence mask against the plain decode and its syndrome in
 every build, the kernel's time with and without the mask, and the
 two-phase decoder at 2304x1152 over a short window, each frame checked
-against the k1 and full decodes, with the kernel's launches on that path.
+against the k1 and full decodes, with the kernel's launches on that path;
+then the graphed sweep (``sim/scan.py``: a graphed batch's LLRs and bits
+against the eager batch's, ``scan_steps`` 1 and 8 over the same batches,
+K1's launches counted over the replays, both rates and their window
+spans), the coded sweep on 64800x32400 (staircase, K2), 4000x2000 (GF(2),
+the gather kernel) and 16200x10800 (accumulate table, K2), flooding at
+4000x2000 on the card against the CPU and against the gather kernel's
+time, and ``DecodeStream`` over K1.
 Imports nothing of JAX.  Exits non-zero, before printing any result, when
 there is no CUDA device or the package is not beside this script; any
 failing phase exits non-zero.  The last line of standard output is
@@ -432,6 +439,234 @@ def _twophase_path(dev, smi, alu_rate):
     return n_launch, t_mask, t_off
 
 
+def _sweep_cfg(**kw):
+    """A one-point-or-more ``SweepConfig`` on the card with a frame budget
+    that alone ends each point."""
+    from ldpcgputegra_tpu_torch.sim.sweep import SweepConfig
+
+    base = dict(algo="OMS", iters=10, early_term=True, max_fe=10**9,
+                auto_fe=False, seed=1234, device="cuda")
+    base.update(kw)
+    return SweepConfig(**base)
+
+
+def _timed_sweep(cfg):
+    """``run_sweep`` with its window spans; (points, wall s, spans)."""
+    import torch
+
+    from ldpcgputegra_tpu_torch.sim.sweep import run_sweep
+
+    spans = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_sweep(cfg, progress=False, on_window=lambda *w: spans.append(w))
+    torch.cuda.synchronize()
+    return res.points, time.perf_counter() - t0, spans
+
+
+def _scan_path(dev, smi):
+    """The graphed sweep (``sim/scan.py``) at 1944x972 B=1024 through K1:
+    one graphed batch's int8 LLRs and decoded bits equal the eager
+    batch's byte for byte; ``scan_steps`` 1 and 8 over the same 64
+    batches at 1.5 and 2.0 dB give the same BE/FE; K1's launches counted
+    over the graph's replays (one eager warm-up launch a capture, 8 a
+    replay); then both rates with their window spans.  Returns (launches
+    on the graphed sweep, {scan_steps: (Mbit/s, spans summary)})."""
+    import torch
+
+    from ldpcgputegra_tpu_torch.channel.awgn import AwgnChannel
+    from ldpcgputegra_tpu_torch.codes.registry import load_code
+    from ldpcgputegra_tpu_torch.decoder import make_decoder
+    from ldpcgputegra_tpu_torch.kernels import layered as K
+    from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec
+    from ldpcgputegra_tpu_torch.sim.scan import ScanSteps
+    from ldpcgputegra_tpu_torch.sim.sweep import batch_seed
+
+    name, B = "1944x972", 1024
+    code = load_code(name)
+    chan = AwgnChannel(code.N, code.K, device=dev)
+    chan.configure(2.0)
+    dec = make_decoder(code, LayeredSpec(algo="OMS", iters=10,
+                                         early_term=True), device=dev)
+    seeds = [batch_seed(1234, 0, k) for k in range(3)]
+    g_llr = ScanSteps(lambda g: chan.generate_zero_int8(g, B), 3, dev)(seeds)
+    scan = ScanSteps(lambda g: dec(chan.generate_zero_int8(g, B))[0], 3, dev)
+    g_bits = scan(seeds)
+    for j, s in enumerate(seeds):
+        e_llr = chan.generate_zero_int8(chan.generator(s), B)
+        e_bits, _ = dec(e_llr)
+        assert torch.equal(g_llr[j], e_llr), "graphed LLRs differ from eager"
+        assert torch.equal(g_bits[j], e_bits), "graphed bits differ from eager"
+    torch.cuda.synchronize()
+    print(f"[scan] {name} B={B}: 3 graphed batches' int8 LLRs and decoded "
+          f"bits equal the eager batches' byte for byte "
+          f"(channel bit errors {int((g_llr[0] > 0).sum())}); the warm-up and "
+          f"capture of 3 decodes took {scan.capture_s * 1e3:.1f} ms")
+    counts = {}
+    for S in (1, 8):
+        K.launches["layered_minsum"] = 0
+        pts, wall, _ = _timed_sweep(_sweep_cfg(
+            code=name, batch=B, snr_min=1.5, snr_max=2.0, snr_step=0.5,
+            max_frames=64 * B, pipeline_depth=1, scan_steps=S))
+        counts[S] = [(p.frames, p.be, p.fe) for p in pts]
+        n_launch = K.launches["layered_minsum"]
+        batches = sum(p.batches for p in pts)
+        print(f"[scan] scan_steps {S}: {counts[S]} (frames, BE, FE) at 1.5 "
+              f"and 2.0 dB; layered_minsum launches {n_launch} for "
+              f"{batches} batches")
+        # a graphed run's warm-up is one eager launch; each replay adds 8
+        assert n_launch == batches + (S > 1), (n_launch, batches)
+    assert counts[1] == counts[8], "scan_steps changed the counts"
+    assert all(fe > 0 for _, _, fe in counts[1])
+    rates = {}
+    K.launches["layered_minsum"] = 0
+    for S in (1, 8, 1, 8):
+        pts, wall, spans = _timed_sweep(_sweep_cfg(
+            code=name, batch=B, snr_min=2.0, snr_max=2.0,
+            max_frames=1024 * B, scan_steps=S))
+        (p,) = pts
+        disp, fetch = sum(w[0] for w in spans), sum(w[1] for w in spans)
+        mbps = p.frames * code.N / wall / 1e6
+        rates.setdefault(S, []).append(mbps)
+        print(f"[scan] {name} B={B} 2.0 dB scan_steps {S}: {p.batches} "
+              f"batches in {wall:.4f} s, {mbps:.1f} coded Mbit/s (the "
+              f"point's own clock: {p.mbps:.1f}); "
+              f"{len(spans)} windows, {p.batches / len(spans):.2f} batches a "
+              f"window, dispatch {disp * 1e3:.3f} ms, fetch wait "
+              f"{fetch * 1e3:.3f} ms | {smi}")
+    n_launch = K.launches["layered_minsum"]
+    assert n_launch > 0, "the graphed sweep did not run the kernel"
+    return n_launch, rates
+
+
+def _coded_paths(dev, smi):
+    """The coded sweep at the registry's sizes, each through its kernel:
+    64800x32400 B=512 staircase (K2), 4000x2000 B=4096 GF(2) (the gather
+    kernel), 16200x10800 B=1024 accumulate table (K2); BER below the raw
+    channel BER, launches counted, and the coded rate beside the fake
+    encoder's at the same code and batch, both by the point's own clock
+    (``SnrPoint.mbps``: the encoder's set-up, a GF(2) elimination, is
+    outside it).  Returns {kernel: launches}."""
+    import torch
+
+    from ldpcgputegra_tpu_torch.channel.awgn import AwgnChannel
+    from ldpcgputegra_tpu_torch.codes.registry import load_code
+    from ldpcgputegra_tpu_torch.kernels import gather as G
+    from ldpcgputegra_tpu_torch.kernels import streamed as S
+
+    launches = {"streamed_minsum": 0, "gather_minsum": 0}
+    for name, B, enc, snr, n_batches, mod, key in (
+            ("64800x32400", 512, "staircase", 1.5, 8, S, "streamed_minsum"),
+            ("4000x2000", 4096, "gf2", 2.0, 16, G, "gather_minsum"),
+            ("16200x10800", 1024, "table", 3.0, 16, S, "streamed_minsum")):
+        code = load_code(name)
+        ch = AwgnChannel(code.N, code.K, device=dev)
+        ch.configure(snr)
+        raw = float((ch.generate_zero_int8(ch.generator(7), 256) > 0)
+                    .float().mean())
+        rate = {}
+        for e in (enc, "fake", enc):
+            mod.launches[key] = 0
+            (p,), wall, _ = _timed_sweep(_sweep_cfg(
+                code=name, batch=B, snr_min=snr, snr_max=snr, encoder=e,
+                max_frames=n_batches * B))
+            if e == enc:
+                launches[key] += mod.launches[key]
+                assert mod.launches[key] > 0, f"{name}: no {key} launch"
+                assert p.ber < raw, f"{name}: decoding did not lower the BER"
+            rate.setdefault(e, []).append(p.mbps)
+            print(f"[coded] {name} B={B} {e} {snr} dB: {p.frames} frames, "
+                  f"FE={p.fe} FER={p.fer:.4e} BER={p.ber:.4e} (raw channel "
+                  f"{raw:.4e}), {key} launches {mod.launches[key]}, "
+                  f"{p.mbps:.1f} coded Mbit/s by the point's clock, "
+                  f"{p.frames * code.N / wall / 1e6:.1f} with the set-up "
+                  f"| {smi}")
+        print(f"[coded] {name} B={B}: coded / fake rate "
+              f"{max(rate[enc]) / max(rate['fake']):.4f} (best of each)")
+    torch.cuda.synchronize()
+    return launches
+
+
+def _flooding_path(dev, smi):
+    """Flooding at 4000x2000 (plain PyTorch on the card): a 64-frame batch
+    decoded on the card equals the CPU's, OMS 20 iterations, ET on and
+    off; its ms a call at B=4096 beside the gather kernel's layered decode
+    (OMS 10); then a flooding sweep at B=4096.  Returns (flooding ms,
+    gather ms)."""
+    import torch
+
+    from ldpcgputegra_tpu_torch.bench import measure_call
+    from ldpcgputegra_tpu_torch.codes.registry import load_code
+    from ldpcgputegra_tpu_torch.decoder import make_decoder
+    from ldpcgputegra_tpu_torch.ops.flooding import make_flooding_decoder
+    from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec
+
+    code = load_code("4000x2000")
+    for et in (True, False):
+        spec = LayeredSpec(algo="OMS", iters=20, early_term=et,
+                           schedule="flooding")
+        llr = torch.from_numpy(_llrs(code.N, 64, 1.5, seed=900))
+        cb, ci = make_flooding_decoder(code, spec, "cpu")(llr)
+        gb, gi = make_flooding_decoder(code, spec, dev)(llr.to(dev))
+        assert torch.equal(gb.cpu(), cb) and int(gi) == int(ci), \
+            "flooding on the card differs from the CPU"
+        print(f"[flooding] 4000x2000 B=64 OMS 20 it ET={et} 1.5 dB: card "
+              f"equals CPU (iters {int(gi)}, decoded errors "
+              f"{int(gb.sum())} of channel {int((llr > 0).sum())})")
+    inputs = [torch.from_numpy(_llrs(code.N, 4096, 2.0, seed=910 + i)).to(dev)
+              for i in range(3)]
+    t_f = measure_call(make_flooding_decoder(code, LayeredSpec(
+        algo="OMS", iters=20, schedule="flooding"), dev), inputs, k_small=1,
+        k_large=4, repeats=2)
+    t_g = measure_call(make_decoder(code, LayeredSpec(algo="OMS", iters=10),
+                                    device=dev), inputs)
+    print(f"[flooding] 4000x2000 B=4096 ET off: flooding OMS 20 it "
+          f"{t_f * 1e3:.4f} ms a call, the gather kernel's layered OMS 10 it "
+          f"{t_g * 1e3:.4f} ms ({t_f / t_g:.2f}x) | {smi}")
+    (p,), wall, _ = _timed_sweep(_sweep_cfg(
+        code="4000x2000", batch=4096, iters=20, schedule="flooding",
+        snr_min=2.0, snr_max=2.0, max_frames=4 * 4096))
+    print(f"[flooding] sweep 4000x2000 B=4096 OMS 20 it ET on 2.0 dB: "
+          f"{p.frames} frames FER={p.fer:.4e} BER={p.ber:.4e}, "
+          f"{p.frames * code.N / wall / 1e6:.1f} coded Mbit/s | {smi}")
+    assert p.fe < p.frames
+    return t_f, t_g
+
+
+def _stream_path(dev):
+    """``DecodeStream`` over K1 at 1944x972 B=1024, depth 2: results in
+    order equal direct decodes; returns K1's launches on it."""
+    import numpy as np
+    import torch
+
+    from ldpcgputegra_tpu_torch.codes.registry import load_code
+    from ldpcgputegra_tpu_torch.decoder import make_decoder
+    from ldpcgputegra_tpu_torch.decoder.stream import DecodeStream
+    from ldpcgputegra_tpu_torch.kernels import layered as K
+    from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec
+
+    code = load_code("1944x972")
+    spec = LayeredSpec(algo="OMS", iters=10, early_term=True)
+    xs = [torch.from_numpy(_llrs(code.N, 1024, 1.75, seed=950 + i)).to(dev)
+          for i in range(5)]
+    stream = DecodeStream(code, spec, depth=2, device=dev)
+    torch.cuda.synchronize()
+    K.launches["layered_minsum"] = 0
+    for x in xs:
+        stream.submit(x)
+    got = list(stream.drain())
+    n_launch = K.launches["layered_minsum"]
+    direct = make_decoder(code, spec, device=dev)
+    for x, (bits, iters) in zip(xs, got):
+        ref, ref_it = direct(x)
+        assert np.array_equal(bits, ref.cpu().numpy()) and iters == int(ref_it)
+    print(f"[stream] DecodeStream 1944x972 B=1024 depth 2: 5 batches in "
+          f"order, equal to direct decodes; layered_minsum launches "
+          f"{n_launch}; iters {[it for _, it in got]}")
+    assert n_launch == 5 and stream.pending == 0
+    return n_launch
+
+
 def main() -> int:
     import torch
 
@@ -767,6 +1002,20 @@ def main() -> int:
               f"| {smi}")
     phase_done(17)
 
+    # 18. the graphed sweep: scan_steps 1 and 8 through K1, counted over
+    # the graph's replays
+    scan_launch, scan_rates = _scan_path(dev, smi)
+    phase_done(18)
+
+    # 19. the coded sweep on three codes, each through its kernel
+    coded_launch = _coded_paths(dev, smi)
+    phase_done(19)
+
+    # 20. flooding (plain PyTorch on the card) and DecodeStream over K1
+    t_flood, t_flood_g = _flooding_path(dev, smi)
+    stream_launch = _stream_path(dev)
+    phase_done(20)
+
     # "route" is how the kernel is written (CUDA C++); "backend" is the
     # decoder backend that ``auto`` resolves to on the path it was driven
     # on; no one PyTorch call computes a layered min-sum decode, so its
@@ -788,8 +1037,11 @@ def main() -> int:
         # disagreement over bits, iters_used and ok, and its time at k1=5
         # with and without the mask
         mask = ({"launches_twophase": tp_launch, "mask_ms": t_mask * 1e3,
-                 "mask_off_ms": t_mask_off * 1e3}
-                if name == "layered_minsum" else {})
+                 "mask_off_ms": t_mask_off * 1e3,
+                 "launches_scan": scan_launch,
+                 "launches_stream": stream_launch}
+                if name == "layered_minsum" else
+                {"launches_coded": coded_launch[name]})
         if name == "layered_minsum":
             err = max(err, mask_err)
         kernels.append({

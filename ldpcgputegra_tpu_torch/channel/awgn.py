@@ -13,6 +13,13 @@ of ``ldpcgputegra_tpu/channel/awgn.py``).
 Randomness comes from an explicit ``torch.Generator`` on the output's
 device.  It cannot reproduce the JAX package's threefry stream: the
 contract is statistical.
+
+sigma, the quantizer's factor and the normalisation 2/sigma^2 are held as
+0-d float32 tensors on the channel's device, filled by ``configure``, so
+that a CUDA graph captured over ``generate*`` serves every SNR point, as
+one JAX executable takes sigma and the factor as traced scalars
+(``sim/sweep.py``).  A float32 tensor operand gives the same products as
+the Python float it holds, so the values do not depend on that.
 """
 
 from __future__ import annotations
@@ -54,8 +61,11 @@ class ChannelSpec:
     quant: QuantSpec = QuantSpec()
 
 
-def _generate_float(gen: torch.Generator, tx_bits: torch.Tensor, sigma: float,
+def _generate_float(gen: torch.Generator, tx_bits: torch.Tensor,
+                    sigma: torch.Tensor, norm: torch.Tensor,
                     spec: ChannelSpec) -> torch.Tensor:
+    """Received values for coded bits; ``sigma`` and ``norm`` (2/sigma^2,
+    read only with ``spec.normalize``) are 0-d float32 tensors."""
     amp = _INV_SQRT2 if spec.qpsk else 1.0
     symbols = torch.where(tx_bits != 0, amp, -amp).to(torch.float32)
     if spec.no_channel:
@@ -73,7 +83,7 @@ def _generate_float(gen: torch.Generator, tx_bits: torch.Tensor, sigma: float,
     else:
         raise ValueError(f"unknown fading {spec.fading!r}")
     if spec.normalize:
-        y = y * (2.0 / (sigma * sigma))
+        y = y * norm
     return y
 
 
@@ -102,6 +112,8 @@ class AwgnChannel:
         self.device = torch.device(device)
         self.sigma: Optional[float] = None
         self.factor: Optional[float] = None
+        # sigma, factor, 2/sigma^2 as float32 on the device (see above)
+        self._scalars = torch.zeros(3, dtype=torch.float32, device=self.device)
 
     def configure(self, snr_db: float) -> float:
         self.sigma = sigma_for_snr(
@@ -109,6 +121,9 @@ class AwgnChannel:
         )
         self.factor = (optimal_llr_factor(self.sigma, self.spec.quant)
                        if self.spec.opt_llr else float(self.spec.quant.factor))
+        for t, v in zip(self._scalars, (self.sigma, self.factor,
+                                        2.0 / (self.sigma * self.sigma))):
+            t.fill_(v)  # a launch on the stream, no host wait
         return self.sigma
 
     def _check(self) -> None:
@@ -123,14 +138,14 @@ class AwgnChannel:
                        tx_bits: torch.Tensor) -> torch.Tensor:
         """Float received values for explicit coded bits [B, N]."""
         self._check()
-        return _generate_float(gen, tx_bits.to(self.device), self.sigma,
-                               self.spec)
+        return _generate_float(gen, tx_bits.to(self.device), self._scalars[0],
+                               self._scalars[2], self.spec)
 
     def generate_int8(self, gen: torch.Generator,
                       tx_bits: torch.Tensor) -> torch.Tensor:
         """Quantized int8 LLRs for explicit coded bits [B, N]."""
-        return _quantize(gen, self.generate_float(gen, tx_bits), self.factor,
-                         self.spec)
+        return _quantize(gen, self.generate_float(gen, tx_bits),
+                         self._scalars[1], self.spec)
 
     def generate_zero_int8(self, gen: torch.Generator, batch: int) -> torch.Tensor:
         """Quantized int8 LLRs for the all-zero codeword (the GPU channel's

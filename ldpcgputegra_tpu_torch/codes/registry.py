@@ -82,19 +82,14 @@ def _load_npz(path: str, name: str) -> LdpcCode:
 @functools.lru_cache(maxsize=None)
 def load_code(name: str) -> LdpcCode:
     """Load a named code: a registry name ("1944x972"), a path to a
-    .json/.npz file, or ``synthqc-<nbcols>x<nbrows>x<deg>-z<Z>[-s<seed>]``."""
+    .json/.npz/.alist file, or ``synthqc-<nbcols>x<nbrows>x<deg>-z<Z>[-s<seed>]``."""
     if name.startswith("synthqc-"):
         m = re.match(r"synthqc-(\d+)x(\d+)x(\d+)-z(\d+)(?:-s(\d+))?$", name)
         if not m:
             raise KeyError(f"bad synthetic QC code name {name!r}")
         nc, nr, deg, z, seed = (int(g) if g else 0 for g in m.groups())
         return make_random_qc_code(nc, nr, deg, z, seed, name=name)
-    if name.endswith(".alist"):
-        raise NotImplementedError(
-            "alist codes are not ported yet (ROADMAP queue 1 item 1: "
-            "codes/alist.py)"
-        )
-    if os.path.sep in name or name.endswith((".json", ".npz")):
+    if os.path.sep in name or name.endswith((".json", ".npz", ".alist")):
         path = name
         base = os.path.splitext(os.path.basename(name))[0]
     else:
@@ -107,6 +102,10 @@ def load_code(name: str) -> LdpcCode:
             raise KeyError(f"unknown code {name!r}; available: {list_codes()}")
     if path.endswith(".json"):
         return _load_qc_json(path)
+    if path.endswith(".alist"):
+        from .alist import load_alist
+
+        return load_alist(path)
     return _load_npz(path, base)
 
 

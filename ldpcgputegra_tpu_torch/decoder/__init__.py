@@ -13,6 +13,9 @@ Backends:
   fits, else in device memory: the layers of any schedule, QC views
   included, so the QC views of the DVB-S2 family and synthqc;
 * ``torch`` — the plain PyTorch layered decoder (``ops/layered.py``);
+* ``torch-flooding`` — the flooding schedule (``ops/flooding.py``), plain
+  PyTorch on any device and code, whatever the backend asked for: the JAX
+  package decodes it in XLA, not in a Pallas kernel;
 * ``auto`` — on a CUDA device ``cuda`` where the QC kernel takes the code,
   else ``cuda-gather`` where the gather kernel does, else
   ``cuda-streamed``; ``torch`` on the CPU.  A code or spec no kernel takes
@@ -20,7 +23,8 @@ Backends:
 
 Staircase (DVB-S2-family) codes are replaced by their Z=360 QC view
 (``effective_code``), as in the JAX package; the view permutes columns
-internally, so callers see the original column order.
+internally, so callers see the original column order.  The flooding
+schedule decodes the original code (JAX ``decoder/__init__.py:134-142``).
 
 All backends return ``decode(llr[B, N] int8) -> (bits[B, N] uint8,
 iters_used)`` on tensors of the decoder's device.  With ``emit_mask`` they
@@ -80,7 +84,10 @@ def backend_for(code: LdpcCode, spec: LayeredSpec, device=None,
     device = torch.device(device) if device is not None else default_device()
     if backend == "native":
         raise NotImplementedError(
-            "backend='native' is not ported yet (ROADMAP queue 1 item 7)")
+            "backend='native' is not ported yet (ROADMAP queue 1 item 5: "
+            "golden/native.py)")
+    if spec.schedule == "flooding":
+        return "torch-flooding"
     if backend == "auto":
         if device.type != "cuda":
             return "torch"
@@ -110,6 +117,11 @@ def make_decoder(
     convergence mask (see the module's docstring)."""
     device = torch.device(device) if device is not None else default_device()
     resolved = backend_for(code, spec, device, backend)
+    if resolved == "torch-flooding":
+        from ..ops.flooding import make_flooding_decoder
+
+        return _with_mask(make_flooding_decoder(code, spec, device), code,
+                          emit_mask, device)
     orig_code, code = code, effective_code(code)
     if resolved == "cuda":
         from ..kernels import make_cuda_decoder

@@ -178,7 +178,8 @@ def unsupported_reason(code: LdpcCode, spec: LayeredSpec):
     """Why the port's layered decoders cannot take this code and schedule;
     None when they can."""
     if spec.schedule == "flooding":
-        return "the flooding schedule is not ported yet (ROADMAP queue 1 item 12)"
+        return ("the flooding schedule has no layers: make_decoder decodes it "
+                "with ops/flooding.py")
     if spec.schedule not in ("auto", "reference", "colored"):
         return f"unknown schedule {spec.schedule!r}"
     if spec.schedule == "colored" and is_qc_view(code):

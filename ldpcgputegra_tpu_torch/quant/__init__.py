@@ -39,9 +39,12 @@ def quantize_llr(x: torch.Tensor, spec: QuantSpec = QuantSpec(),
     """float32 LLRs -> int8, truncate toward zero, then saturate.
 
     The clamp comes first: a float -> int8 cast truncates toward zero but
-    is undefined out of range.  ``factor`` overrides ``spec.factor``.
+    is undefined out of range.  ``factor`` overrides ``spec.factor``; a
+    0-d float32 tensor gives the same values as the float it holds.
     """
-    f = float(spec.factor) if factor is None else float(factor)
+    f = spec.factor if factor is None else factor
+    if not isinstance(f, torch.Tensor):
+        f = float(f)
     sat = float(spec.sat)
     return (x * f).clamp(-sat, sat).to(torch.int8)
 

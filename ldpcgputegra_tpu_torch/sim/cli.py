@@ -43,7 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="pre = x86 scalar oracle semantics, post = GPU kernels")
     g.add_argument("--schedule", default="auto",
                    choices=["auto", "reference", "colored", "flooding"],
-                   help="layered check order (flooding: not ported yet)")
+                   help="layered check order, or flooding (all checks in "
+                        "parallel, plain PyTorch; ~2x the iterations for the "
+                        "same BER)")
     g.add_argument("--backend", default="auto",
                    choices=["auto", "cuda", "cuda-gather", "cuda-streamed",
                             "torch", "native"],
@@ -51,12 +53,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "hand-written kernel for any layers (non-QC codes), "
                         "cuda-streamed = hand-written kernel with the APP in "
                         "device memory (DVB-S2 QC views, synthqc), "
-                        "torch = plain PyTorch (native: not ported yet)")
+                        "torch = plain PyTorch (native: not ported yet, "
+                        "ROADMAP queue 1 item 5)")
     g.add_argument("--device", default=None,
                    help="torch device (default: cuda when available, else cpu)")
     p.add_argument("--channel-rng", dest="channel_rng", default="threefry",
                    choices=["threefry", "philox"],
-                   help="with --backend native (not ported yet)")
+                   help="with --backend native (not ported yet, ROADMAP "
+                        "queue 1 item 5)")
 
     s = p.add_argument_group("SNR sweep")
     s.add_argument("--min", dest="snr_min", type=float, default=0.5)
@@ -91,14 +95,16 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None,
                    help="stop sweep when FER drops below this value")
     t.add_argument("--pipeline", dest="pipeline_depth", type=int, default=2,
-                   help="batches kept in flight")
+                   help="dispatches kept in flight")
     t.add_argument("--scan-steps", dest="scan_steps", type=int, default=1,
-                   help="only 1 is ported")
+                   help="fake-encoder batches a dispatch: one CUDA graph "
+                        "replay of S batches on the card")
 
     e = p.add_argument_group("encoder / quantization")
     e.add_argument("--encoder", default="fake",
                    choices=["fake", "table", "staircase", "gf2", "auto"],
-                   help="only fake (all-zero) is ported")
+                   help="fake = all-zero codeword; the others encode random "
+                        "info bits on the device")
     e.add_argument("--all-zero-bits", dest="random_bits",
                    action="store_false", help="info bits all zero")
     e.add_argument("--llr-factor", dest="quant_factor", type=int, default=8,
@@ -164,11 +170,15 @@ def _print_info(cfg: SweepConfig) -> None:
     """Backend/layout report (the reference's -info kernel report)."""
     import torch
 
+    from ..channel.encoder import FakeEncoder, make_encoder
     from ..codes.registry import load_code
     from ..decoder import backend_for, default_device, effective_code
     from ..kernels._lib import SMS_H100
 
-    code = effective_code(load_code(cfg.code))
+    base = load_code(cfg.code)
+    spec = _spec(cfg)
+    # flooding decodes the original code, the layered schedules its QC view
+    code = base if spec.schedule == "flooding" else effective_code(base)
     device = torch.device(cfg.device) if cfg.device else default_device()
     if device.type != "cuda":
         name = "cpu"
@@ -183,12 +193,22 @@ def _print_info(cfg: SweepConfig) -> None:
           f"(qc {sum(1 for l in code.layers if l.qc is not None)}, sub-pass "
           f"{sum(1 for l in code.layers if l.qc and l.qc.commit_rows is not None)})"
           + (" of the QC view" if code.col_perm is not None else ""))
+    enc = make_encoder(base, cfg.encoder)
+    print(f"(II) encoder      : {cfg.encoder} -> {type(enc).__name__}"
+          + ("" if isinstance(enc, FakeEncoder) else
+             f" ({'random' if cfg.random_bits else 'all-zero'} info bits, "
+             "encoded on the device)"))
     try:
-        backend = backend_for(code, _spec(cfg), device, cfg.backend)
+        backend = backend_for(code, spec, device, cfg.backend)
     except NotImplementedError as e:
         print(f"(II) backend      : none ({e})")
         return
     print(f"(II) backend      : {backend}")
+    if cfg.scan_steps > 1 and isinstance(enc, FakeEncoder):
+        how = ("one CUDA graph captured at the first dispatch, one replay "
+               "a dispatch" if device.type == "cuda" else "a loop")
+        print(f"(II) scan steps   : {cfg.scan_steps} batches a dispatch "
+              f"({how}), {cfg.pipeline_depth} dispatches in flight")
     sms = (torch.cuda.get_device_properties(device).multi_processor_count
            if device.type == "cuda" and torch.cuda.is_available()
            else SMS_H100)

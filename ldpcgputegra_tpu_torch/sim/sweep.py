@@ -1,17 +1,32 @@
 """SNR sweep (the port's counterpart of
 ``ldpcgputegra_tpu/sim/sweep.py``).
 
-Sweeps Eb/N0 from min to max in steps; per point, generates all-zero
-codeword frames through the channel, decodes and counts them in batches
+Sweeps Eb/N0 from min to max in steps; per point, generates frames
+through the encoder and the channel, decodes and counts them in batches
 until the adaptive FE limit, a frame budget or a wall-clock budget is
 reached; stops the whole sweep at a quasi-error-free FER (``-qef``).
 
 Batches are dispatched ``pipeline_depth`` deep: on a CUDA device the
 channel, decode and count of a batch are queued on the stream without a
 host wait, and the (BE, FE) counters of the oldest batches are fetched
-in one transfer per window.  Batch k of point p draws its noise from a
-generator seeded by ``(seed, p, k)``, so dispatch order never changes the
-result and a resume from the per-point checkpoint is deterministic.
+in one transfer per window.  Batch k of point p draws its randomness
+from one generator seeded by ``(seed, p, k)``: the noise with the fake
+(all-zero) encoder, the info bits and then the noise with a real one.  So
+dispatch order never changes the result and a resume from the per-point
+checkpoint is deterministic.  The info bits are not the JAX package's
+(it draws them with NumPy): the coded path's contract is statistical, as
+the channel's is.
+
+With the fake encoder, ``scan_steps`` = S > 1 dispatches S batches at a
+time (``sim/scan.py``): one CUDA graph replay on the card, where JAX runs
+one ``lax.scan`` executable; counters are the same for any S, and a frame
+budget that S does not divide is overshot to whole groups, as in JAX.
+The coded path dispatches one batch at a time, as JAX's does.
+
+``LDPC_TPU_DEBUG_TIMING=1`` prints each window's host spans, as the JAX
+sweep does: the time spent dispatching, the time waiting on the fetch of
+the counts, and the batches fetched; ``on_window`` receives the same
+three numbers.
 """
 
 from __future__ import annotations
@@ -27,11 +42,14 @@ import numpy as np
 import torch
 
 from ..channel.awgn import AwgnChannel, ChannelSpec
+from ..channel.bitgen import generate_info_bits
+from ..channel.encoder import FakeEncoder, make_encoder
 from ..codes.registry import load_code
 from ..decoder import default_device, make_decoder
 from ..ops.layered import LayeredSpec
 from ..quant import QuantSpec
 from .analyzer import ErrorAnalyzer, count_errors_async
+from .scan import ScanSteps
 from .terminal import Terminal
 
 __all__ = ["SweepConfig", "SnrPoint", "SweepResult", "run_sweep",
@@ -68,13 +86,15 @@ class SweepConfig:
     max_frames: int = 10_000_000  # per-point frame budget
     timer_s: Optional[float] = None  # per-point wall budget (-timer)
     qef_fer: Optional[float] = None  # sweep cutoff (-qef)
-    pipeline_depth: int = 2  # batches kept in flight
-    scan_steps: int = 1  # only 1 is ported (ROADMAP queue 1 item 7)
+    pipeline_depth: int = 2  # dispatches kept in flight
+    # fake-encoder batches a dispatch: S > 1 is one CUDA graph replay of S
+    # batches on the card (sim/scan.py), a loop of S on the CPU
+    scan_steps: int = 1
 
     backend: str = "auto"  # auto | cuda | cuda-gather | cuda-streamed | torch
     channel_rng: str = "threefry"  # read only by backend='native'
-    encoder: str = "fake"  # only the fake (all-zero) encoder is ported
-    random_bits: bool = True
+    encoder: str = "fake"  # fake | table | staircase | gf2 | auto
+    random_bits: bool = True  # -random (ignored by the fake encoder)
     quant_factor: int = 8
     bits_llr: int = 6
     var_bits: int = 8  # APP quantizer width -> sat 2^(b-1)-1
@@ -139,27 +159,20 @@ def batch_seed(seed: int, point: int, batch: int) -> int:
 
 
 def _check_ported(cfg: SweepConfig) -> None:
-    if cfg.encoder != "fake":
-        raise NotImplementedError(
-            "only the fake (all-zero) encoder is ported; the coded path "
-            "waits for channel/encoder.py (ROADMAP queue 1 item 7)")
     if cfg.backend == "native":
         raise NotImplementedError(
-            "backend='native' is not ported yet (ROADMAP queue 1 item 7)")
-    if cfg.scan_steps > 1:
-        raise NotImplementedError(
-            "scan_steps > 1 is not ported yet (ROADMAP queue 1 item 7: "
-            "CUDA Graphs or drop)")
-    if cfg.schedule == "flooding":
-        raise NotImplementedError(
-            "the flooding schedule is not ported yet (ROADMAP queue 1 item 12)")
+            "backend='native' is not ported yet (ROADMAP queue 1 item 5: "
+            "golden/native.py)")
 
 
 def run_sweep(
     cfg: SweepConfig,
     progress: bool = True,
     on_point: Optional[Callable[[SnrPoint], None]] = None,
+    on_window: Optional[Callable[[float, float, int], None]] = None,
 ) -> SweepResult:
+    """Run the sweep; ``on_point(point)`` after each SNR point,
+    ``on_window(dispatch_s, fetch_s, batches)`` after each fetch window."""
     _check_ported(cfg)
     device = torch.device(cfg.device) if cfg.device else default_device()
     code = load_code(cfg.code)
@@ -170,6 +183,7 @@ def run_sweep(
         inject_flip_p=cfg.inject_flip_p, quant=quant,
     )
     channel = AwgnChannel(code.N, code.K, chan_spec, device)
+    encoder = make_encoder(code, cfg.encoder)
     spec = LayeredSpec(
         algo=cfg.algo,
         iters=cfg.iters,
@@ -184,8 +198,28 @@ def run_sweep(
     )
     decoder = make_decoder(code, spec, backend=cfg.backend, device=device)
     info_only = cfg.count_bits == "info"
+    is_fake = isinstance(encoder, FakeEncoder)
+
+    def step(gen: torch.Generator) -> torch.Tensor:
+        """One batch from ``gen``: [2] int64 (BE, FE) on the device."""
+        if is_fake:
+            llr = channel.generate_zero_int8(gen, cfg.batch)
+            reference = None
+        else:
+            info = generate_info_bits(gen, cfg.batch, code.K, cfg.random_bits)
+            coded = encoder.encode(info)
+            llr = channel.generate_int8(gen, coded)
+            reference = coded.to(torch.uint8)
+        decoded, _ = decoder(llr)
+        return torch.stack(count_errors_async(
+            decoded, reference=reference, info_only=info_only, k=code.K))
+
+    # batches a dispatch: scan-folded on the fake-encoder path only
+    grp = max(1, cfg.scan_steps) if is_fake else 1
+    scan = ScanSteps(step, grp, device) if grp > 1 else None
     metrics_f = open(cfg.metrics, "a") if cfg.metrics else None
     ckpt = _load_ckpt(cfg.checkpoint)
+    debug_t = os.environ.get("LDPC_TPU_DEBUG_TIMING") == "1"
 
     points: list[SnrPoint] = []
     try:
@@ -211,29 +245,38 @@ def run_sweep(
                 analyzer, snr, metrics=metrics_f, start_elapsed=resumed_elapsed
             )
 
-            def dispatch(k: int, pi=pi):
-                gen = channel.generator(batch_seed(cfg.seed, pi, k))
-                llr = channel.generate_zero_int8(gen, cfg.batch)
-                decoded, _ = decoder(llr)
-                return count_errors_async(decoded, info_only=info_only,
-                                          k=code.K)
+            def dispatch(k: int, pi=pi) -> torch.Tensor:
+                """Batches k .. k + grp - 1: [grp, 2] counts, not fetched."""
+                if scan is not None:
+                    return scan([batch_seed(cfg.seed, pi, k + j)
+                                 for j in range(grp)])
+                return step(channel.generator(batch_seed(cfg.seed, pi, k)))[None]
 
             depth = max(1, cfg.pipeline_depth)
             inflight: deque = deque()
             next_k = batch_idx
             stop = False
             while not stop or inflight:
+                t_disp = time.perf_counter()
                 while not stop and len(inflight) < depth:
                     inflight.append(dispatch(next_k))
-                    next_k += 1
+                    next_k += grp
+                t_fetch = time.perf_counter()
                 # fetch the oldest half of the window in ONE transfer
                 n_fetch = max(1, len(inflight) // 2) if not stop else len(inflight)
                 group = [inflight.popleft() for _ in range(n_fetch)]
-                stacked = torch.stack(
-                    [torch.stack([be, fe]) for be, fe in group]).cpu().tolist()
+                stacked = torch.cat(group).cpu().tolist()
                 for be_i, fe_i in stacked:
                     analyzer.add_counts(cfg.batch, int(be_i), int(fe_i))
                     batch_idx += 1
+                t_end = time.perf_counter()
+                if on_window is not None:
+                    on_window(t_fetch - t_disp, t_end - t_fetch, len(stacked))
+                if debug_t:
+                    print(f"(DBG) window: dispatch "
+                          f"{1e3 * (t_fetch - t_disp):.1f} ms, fetch "
+                          f"{1e3 * (t_end - t_fetch):.1f} ms "
+                          f"({len(stacked)} batches)")
                 if progress:
                     term.temp_report()
                 ckpt["partial"] = {

@@ -36,6 +36,18 @@ from ldpcgputegra_tpu_torch.codes.registry import load_code
 from ldpcgputegra_tpu_torch.decoder import backend_for
 from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the cores, and the
+    many small tensor ops here run far slower on a pool of threads that
+    competes with them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -98,7 +98,9 @@ def test_qc_tables_refuse_non_qc():
 
 
 def test_unported_inputs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the name is historical: alist files load now (codes/alist.py), so
+    # what raises is a missing file and an unknown name
+    with pytest.raises(FileNotFoundError):
         preg.load_code("some/code.alist")
     with pytest.raises(KeyError):
         preg.load_code("no-such-code")

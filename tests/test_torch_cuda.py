@@ -1,9 +1,11 @@
 """The CUDA kernels (the QC layered min-sum kernel, with and without its
 convergence mask, the gather kernel for any layers, the streamed kernel
 for QC codes and views beyond shared memory, and the probe kernels of the
-benchmark-suite path) against their plain PyTorch version, and the
-two-phase decoder against its CPU result, on the card.  Every test
-here needs an NVIDIA GPU and skips without one.
+benchmark-suite path) against their plain PyTorch version, the
+two-phase decoder against its CPU result, a CUDA graph's batches against
+eager ones, and the encoders, flooding and ``DecodeStream`` on the card
+against the CPU.  Every test here needs an NVIDIA GPU and skips without
+one.
 
 On a machine with a card (and without jax, which ``tests/conftest.py``
 imports), run:
@@ -479,3 +481,132 @@ def test_suite_rows_run_through_a_kernel(dev):
     lat = suite.bench_latency("4000x2000", 10, True, dev=dev)
     assert lat["backend"] == "cuda-gather" and lat["batch"] == 128
     assert lat["ms_per_call"] > 0 and math.isfinite(lat["us_per_frame"])
+
+
+# the graphed sweep (sim/scan.py), the coded path, flooding, DecodeStream
+
+
+@pytest.mark.parametrize("name,B", [("1944x972", 256), ("4000x2000", 128),
+                                    ("16200x7560", 32)])
+def test_graphed_batch_equals_eager(dev, name, B):
+    """A batch of a CUDA graph replay gives the eager batch's int8 LLRs
+    and decoded bits byte for byte (K1, the gather kernel, K2); the
+    graph's launches count once a replay, its capture not at all."""
+    from ldpcgputegra_tpu_torch.channel.awgn import AwgnChannel
+    from ldpcgputegra_tpu_torch.decoder import make_decoder
+    from ldpcgputegra_tpu_torch.sim.scan import ScanSteps
+
+    code = load_code(name)
+    chan = AwgnChannel(code.N, code.K, device=dev)
+    chan.configure(2.0)
+    dec = make_decoder(code, LayeredSpec(algo="OMS", iters=5,
+                                         early_term=True), device=dev)
+    scan = ScanSteps(lambda g: torch.cat(
+        [chan.generate_zero_int8(g, B).view(-1),
+         dec(chan.generate_zero_int8(g, B))[0].view(torch.int8).view(-1)]),
+        2, dev)
+    counters = [K.launches, G.launches, S.launches]
+    for seeds in ([5, 6], [7, 5]):
+        before = [dict(c) for c in counters]
+        out = scan(seeds)
+        for j, s in enumerate(seeds):
+            llr = chan.generate_zero_int8(chan.generator(s), B)
+            assert torch.equal(out[j, :B * code.N].view(B, code.N), llr)
+            # the step drew its LLRs twice from one generator: the decode
+            # saw the second draw
+            g = chan.generator(s)
+            chan.generate_zero_int8(g, B)
+            bits, _ = dec(chan.generate_zero_int8(g, B))
+            assert torch.equal(out[j, B * code.N:].view(torch.uint8)
+                               .view(B, code.N), bits)
+        ran = sum(c[k] - b[k] for c, b in zip(counters, before) for k in c)
+        # 2 decodes a replay, the 2 eager reference decodes above, and
+        # the first call's eager warm-up decode before its capture
+        assert ran == 2 + 2 + (seeds == [5, 6]), ran
+    assert scan.replays == 2
+
+
+def test_graphed_flooding_equals_eager(dev):
+    """The flooding decoder never waits on the host, so a graph takes it:
+    a replayed batch's bits and iterations equal the eager decode's."""
+    from ldpcgputegra_tpu_torch.channel.awgn import AwgnChannel
+    from ldpcgputegra_tpu_torch.decoder import make_decoder
+    from ldpcgputegra_tpu_torch.sim.scan import ScanSteps
+
+    code = load_code("576x288")
+    chan = AwgnChannel(code.N, code.K, device=dev)
+    chan.configure(2.0)
+    dec = make_decoder(code, LayeredSpec(algo="OMS", iters=8, early_term=True,
+                                         schedule="flooding"), device=dev)
+
+    def step(g):
+        bits, used = dec(chan.generate_zero_int8(g, 64))
+        return torch.cat([bits.view(-1).to(torch.int32), used.view(1)])
+
+    out = ScanSteps(step, 2, dev)([3, 4])
+    for j, s in enumerate((3, 4)):
+        bits, used = dec(chan.generate_zero_int8(chan.generator(s), 64))
+        assert torch.equal(out[j, :-1].view(64, code.N).to(torch.uint8), bits)
+        assert int(out[j, -1]) == int(used)
+
+
+def test_graphed_sweep_counts_equal_eager(dev):
+    from ldpcgputegra_tpu_torch.sim.sweep import SweepConfig, run_sweep
+
+    kw = dict(code="576x288", iters=5, snr_min=1.0, snr_max=2.0,
+              snr_step=1.0, batch=256, max_fe=10**9, auto_fe=False,
+              max_frames=8 * 256, pipeline_depth=1, device="cuda")
+    a = run_sweep(SweepConfig(**kw), progress=False).points
+    b = run_sweep(SweepConfig(scan_steps=4, **kw), progress=False).points
+    c = run_sweep(SweepConfig(scan_steps=3, **kw), progress=False).points
+    assert [(p.frames, p.be, p.fe) for p in a] == [
+        (p.frames, p.be, p.fe) for p in b]
+    assert all(p.frames == 9 * 256 for p in c)
+
+
+@pytest.mark.parametrize("name,kind", [("576x288", "gf2"),
+                                       ("16200x7560", "staircase"),
+                                       ("16200x10800", "table")])
+def test_encoders_on_the_card_equal_the_cpu(dev, name, kind):
+    from ldpcgputegra_tpu_torch.channel.encoder import make_encoder
+    from ldpcgputegra_tpu_torch.golden import syndrome_ok
+
+    code = load_code(name)
+    enc = make_encoder(code, kind)
+    info = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 2, (64, code.K), dtype=np.int8))
+    cw = enc.encode(info.to(dev))
+    assert cw.device.type == "cuda"
+    assert torch.equal(cw.cpu(), enc.encode(info))
+    assert syndrome_ok(code, cw[0].cpu().numpy())
+
+
+@pytest.mark.parametrize("et", [False, True])
+def test_flooding_on_the_card_equals_the_cpu(dev, et):
+    from ldpcgputegra_tpu_torch.ops.flooding import make_flooding_decoder
+
+    code = load_code("576x288")
+    spec = LayeredSpec(algo="NMS", iters=8, early_term=et,
+                       schedule="flooding")
+    llr = torch.from_numpy(_llrs(code.N, 96, seed=4))
+    cb, ci = make_flooding_decoder(code, spec, "cpu")(llr)
+    gb, gi = make_flooding_decoder(code, spec, dev)(llr.to(dev))
+    assert torch.equal(gb.cpu(), cb) and int(gi) == int(ci)
+
+
+def test_decode_stream_on_the_card(dev):
+    from ldpcgputegra_tpu_torch.decoder import make_decoder
+    from ldpcgputegra_tpu_torch.decoder.stream import DecodeStream
+
+    code = load_code("1944x972")
+    spec = LayeredSpec(algo="OMS", iters=6, early_term=True)
+    xs = [torch.from_numpy(_llrs(code.N, 512, seed=20 + i)).to(dev)
+          for i in range(4)]
+    st = DecodeStream(code, spec, depth=2, device=dev)
+    for x in xs:
+        st.submit(x)
+    assert st.pending == 4
+    direct = make_decoder(code, spec, device=dev)
+    for x, (bits, iters) in zip(xs, st.drain()):
+        ref, ref_it = direct(x)
+        assert np.array_equal(bits, ref.cpu().numpy()) and iters == int(ref_it)

@@ -29,6 +29,18 @@ from ldpcgputegra_tpu_torch.kernels import streamed as S
 from ldpcgputegra_tpu_torch.kernels._lib import SMEM_MAX
 from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec, make_layered_decoder
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the cores, and the
+    many small tensor ops here run far slower on a pool of threads that
+    competes with them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CUDA = torch.device("cuda")
 STAIRCASE = ["16200x10800", "16200x7560", "64800x21600", "64800x32400",
              "64800x32400-dvbs2", "64800x6480-dvbs2", "64800x7200-dvbs2"]

@@ -6,7 +6,7 @@ checks takes about a minute here.
 
 import pytest
 
-from test_torch_gather import _check
+from test_torch_gather import _check, _one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("et", [False, True])

@@ -21,6 +21,18 @@ from ldpcgputegra_tpu.ops.layered import LayeredSpec as JSpec
 from ldpcgputegra_tpu_torch.codes.registry import make_random_regular_code
 from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec, make_layered_decoder
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the cores, and the
+    many small tensor ops here run far slower on a pool of threads that
+    competes with them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KW = dict(algo="OMS", iters=2, early_term=True, schedule="colored")
 
 

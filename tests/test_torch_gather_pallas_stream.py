@@ -5,7 +5,10 @@ kernel with messages streamed through HBM (``_build_streamed_chunked_kernel``,
 file of its own so that the slow interpret runs spread over two workers.
 """
 
-from test_torch_gather_pallas import check_against_pallas
+from test_torch_gather_pallas import (  # noqa: F401 (a fixture)
+    _one_torch_thread,
+    check_against_pallas,
+)
 
 
 def test_plain_matches_pallas_gather_stream_interpret():

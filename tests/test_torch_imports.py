@@ -18,9 +18,12 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import ldpcgputegra_tpu_torch.kernels.layered as K
-for name in ("sim.cli", "decoder.twophase", "bench.et_study"):
+for name in ("sim.cli", "decoder.twophase", "bench.et_study", "sim.scan",
+             "decoder.stream", "channel.bitgen", "channel.encoder",
+             "ops.flooding", "golden", "golden.decoder", "codes.alist",
+             "utils", "utils.profiling", "utils.debug"):
     assert "ldpcgputegra_tpu_torch." + name in names, names
-assert len(names) >= 20, names
+assert len(names) >= 30, names
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib", "triton",
                                                "ldpcgputegra_tpu.")))

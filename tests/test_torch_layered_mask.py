@@ -27,6 +27,19 @@ from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec
 
 # (B, OMS iterations, seed, noise std): test_pallas.py's mixed batch (about
 # 35 of 48 frames converged at 4 iterations) and its ragged one
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the cores, and the
+    many small tensor ops here run far slower on a pool of threads that
+    competes with them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PALLAS_CASES = {"mixed-128": (128, 4, 21, 0.75), "ragged-70": (70, 2, 3, 0.8)}
 
 

@@ -17,6 +17,17 @@ from ldpcgputegra_tpu_torch.codes.registry import load_code
 from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec, make_layered_decoder
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the cores, and the
+    many small tensor ops here run far slower on a pool of threads that
+    competes with them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("et", [False, True])
 @pytest.mark.parametrize("name", ["576x288", "1944x972", "2304x1152"])
 def test_plain_matches_pallas_interpret(name, et):

@@ -24,6 +24,17 @@ from ldpcgputegra_tpu_torch.quant import (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the cores, and the
+    many small tensor ops here run far slower on a pool of threads that
+    competes with them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _edge_floats(factor: float, sat: int) -> np.ndarray:
     """±0, each integer step k/factor, the float just under it (toward
     zero), values beyond saturation, ±inf, plus random floats."""

@@ -36,6 +36,18 @@ from ldpcgputegra_tpu_torch.codes.registry import make_qc_code, make_random_qc_c
 from ldpcgputegra_tpu_torch.decoder import make_decoder
 from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec, make_layered_decoder
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the cores, and the
+    many small tensor ops here run far slower on a pool of threads that
+    competes with them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _BASE = np.array([
     [0, 2, -1, 5, 1, -1, 3, 0],
     [4, -1, 1, 0, -1, 2, 0, 6],

@@ -26,6 +26,17 @@ from ldpcgputegra_tpu_torch.decoder.twophase import (
 from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec, make_layered_decoder
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the cores, and the
+    many small tensor ops here run far slower on a pool of threads that
+    competes with them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def per_frame():
     """576x288, OMS 10, k1=3, 64 frames from seed 17: the inputs, and JAX's

@@ -18,6 +18,17 @@ from ldpcgputegra_tpu.ops.layered import LayeredSpec as JSpec
 from test_torch_twophase import _port
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the cores, and the
+    many small tensor ops here run far slower on a pool of threads that
+    competes with them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _window(n, seed):
     """Three 256-frame batches at std 0.8 (``test_extras.py``'s windows)."""
     rng = np.random.default_rng(seed)
