@@ -33,7 +33,21 @@ K1's launches counted over the replays, both rates and their window
 spans), the coded sweep on 64800x32400 (staircase, K2), 4000x2000 (GF(2),
 the gather kernel) and 16200x10800 (accumulate table, K2), flooding at
 4000x2000 on the card against the CPU and against the gather kernel's
-time, and ``DecodeStream`` over K1.
+time, and ``DecodeStream`` over K1; then (phase 21) the multi-device path
+with every rank a process on the one card (``parallel/``,
+``sim/distributed.py``): 2 gloo ranks run ``run_distributed_point`` at
+1944x972 (counters equal to a one-process ``run_sweep`` over the same
+seeds, K1's launches counted in the ranks) and the row-sharded decode of
+2304x1152 and of 64800x32400's QC view (bits and iters_used equal to K1's
+and K2's, ET on and off, with the decode's and the all-reduce's ms a
+layer), 4 gloo ranks run dp x tp = 2x2 on 64800x32400 against K2, and one
+NCCL rank the sharded step against K1; (phase 22) the native host library
+(``golden/native.py``: its build, the host's CPU, the AVX-512 decoder at
+1944x972 B=1024 against K1 and its rate beside K1's, a
+``backend='native'`` Philox sweep point checked against K1, the hybrid
+decoder at host fractions 0, 0.05 and 0.25 against the device's bits);
+(phase 23) the plain decoder's node-major option on the card against its
+frame-major decode.
 Imports nothing of JAX.  Exits non-zero, before printing any result, when
 there is no CUDA device or the package is not beside this script; any
 failing phase exits non-zero.  The last line of standard output is
@@ -667,6 +681,316 @@ def _stream_path(dev):
     return n_launch
 
 
+def _ranks_job(rank, job):
+    """One rank of phase 21, spawned by ``parallel/launch.py::run_ranks``
+    with every rank on the one card: ``job["point"]`` runs
+    ``run_distributed_point`` (its counters on rank 0, and this rank's K1
+    launches); ``job["cases"]`` go through ``parallel/dryrun.py::
+    decode_cases``; ``job["timing"]`` times one row-sharded decode with a
+    fixed number of iterations and the all-reduce of one layer's delta
+    slab, ``[max deg, Z, B]`` int32.  ``out["started"]`` is the wall clock
+    when the rank, spawned and in its group, begins the job."""
+    started = time.time()
+    import torch
+    import torch.distributed as dist
+
+    from ldpcgputegra_tpu_torch.codes.registry import load_code
+    from ldpcgputegra_tpu_torch.codes.schedule import build_layers
+    from ldpcgputegra_tpu_torch.decoder import effective_code
+    from ldpcgputegra_tpu_torch.kernels import layered as K
+    from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec
+    from ldpcgputegra_tpu_torch.parallel import (
+        decode_mesh,
+        make_rowsharded_decoder,
+    )
+    from ldpcgputegra_tpu_torch.parallel.dryrun import decode_cases
+    from ldpcgputegra_tpu_torch.sim.distributed import run_distributed_point
+
+    out = {"started": started}
+    if job.get("point"):
+        name, snr, batch, batches = job["point"]
+        K.launches["layered_minsum"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = run_distributed_point(name, snr, batch, batches, LayeredSpec(
+            algo="OMS", iters=10, early_term=True), seed=1234, device="cuda")
+        torch.cuda.synchronize()
+        out["point"] = (None if a is None else
+                        (a.frames, a.bit_errors, a.frame_errors),
+                        K.launches["layered_minsum"],
+                        time.perf_counter() - t0)
+    out["cases"] = decode_cases(rank, job.get("cases", []), "cuda")
+    if job.get("timing"):
+        name, iters, llr = job["timing"]
+        view = effective_code(load_code(name))
+        layers = build_layers(view, "auto")
+        dec = make_rowsharded_decoder(view, LayeredSpec(algo="OMS",
+                                                        iters=iters),
+                                      decode_mesh(), device="cuda")
+        x = torch.from_numpy(llr).cuda()
+        dec(x)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        dec(x)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        slab = torch.zeros((max(l.deg for l in layers), view.Z, x.shape[0]),
+                           dtype=torch.int32, device="cuda")
+        for _ in range(5):
+            dist.all_reduce(slab)
+        torch.cuda.synchronize()
+        dist.barrier()
+        reps = 100
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dist.all_reduce(slab)
+        torch.cuda.synchronize()
+        out["timing"] = {
+            "decode_ms": t_dec * 1e3, "layer_steps": len(layers) * iters,
+            "allreduce_ms": (time.perf_counter() - t0) / reps * 1e3,
+            "slab_bytes": slab.numel() * 4}
+    return out
+
+
+def _multi_device(dev, smi):
+    """Phase 21: the multi-device path on the one card, every rank a
+    process on ``cuda:0`` (gloo: NCCL refuses two ranks on one card).
+
+    2 ranks: ``run_distributed_point`` at 1944x972, global batch 2048
+    (1024 a rank through K1) x 8 batches, whose (frames, BE, FE) must equal
+    a one-process ``run_sweep`` over the same seeds; the row-sharded decode
+    at D=2 of 2304x1152 (B=64, 10 iterations) and of 64800x32400's QC
+    view (B=4, 6 iterations), whose bits and iters_used must equal K1's
+    and K2's, ET on and off; the decode's ms and the all-reduce's ms a
+    layer.  4 ranks: dp x tp = 2x2 on 64800x32400 (B=8, 6 iterations)
+    against K2.  1 NCCL rank: the sharded step at
+    1944x972 B=1024 against K1.  Returns K1's launches in the ranks'
+    point."""
+    import numpy as np
+    import torch
+
+    from ldpcgputegra_tpu_torch.codes.registry import load_code
+    from ldpcgputegra_tpu_torch.decoder import effective_code
+    from ldpcgputegra_tpu_torch.kernels import layered as K
+    from ldpcgputegra_tpu_torch.kernels import streamed as S
+    from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec
+    from ldpcgputegra_tpu_torch.parallel.launch import run_ranks
+
+    specs = {et: LayeredSpec(algo="OMS", iters=10, early_term=et)
+             for et in (False, True)}
+    # 64800x32400: 6 iterations (105 layers, an all-reduce each), at 2.0 dB
+    # where ET stops early
+    specs64 = {et: LayeredSpec(algo="OMS", iters=6, early_term=et)
+               for et in (False, True)}
+    l2304 = _llrs(2304, 64, 2.0, seed=1100)
+    l64800 = _llrs(64800, 8, 2.0, seed=1101)
+    row_cases = [{"kind": "rowshard", "code": name, "spec": sp[et],
+                  "llr": llr} for name, llr, sp in (
+                      ("2304x1152", l2304, specs),
+                      ("64800x32400", l64800[:4], specs64))
+                 for et in (False, True)]
+    t0, w0 = time.perf_counter(), time.time()
+    res2 = run_ranks(_ranks_job, 2, ({
+        "point": ("1944x972", 2.0, 2048, 8), "cases": row_cases,
+        "timing": ("64800x32400", 3, l64800[:4])},), threads=0,
+        timeout=300)
+    t_2 = time.perf_counter() - t0
+    point, k_launch = res2[0]["point"][0], sum(r["point"][1] for r in res2)
+    (one,), _, _ = _timed_sweep(_sweep_cfg(
+        code="1944x972", batch=2048, snr_min=2.0, snr_max=2.0,
+        max_frames=8 * 2048, pipeline_depth=1))
+    print(f"[multi] run_distributed_point 1944x972 2 gloo ranks on one card, "
+          f"global batch 2048 x 8 at 2.0 dB: (frames, BE, FE) {point}, "
+          f"one-process run_sweep {(one.frames, one.be, one.fe)}; "
+          f"layered_minsum launches in the ranks {k_launch}; point wall "
+          f"{max(r['point'][2] for r in res2):.3f} s | {smi}")
+    assert point == (one.frames, one.be, one.fe) and one.fe > 0
+    assert k_launch == 2 * 8, k_launch
+    refs = {"2304x1152": K.make_cuda_decoder,
+            "64800x32400": S.make_streamed_decoder}
+    for i, case in enumerate(row_cases):
+        code = effective_code(load_code(case["code"]))
+        kb, ki = refs[case["code"]](code, case["spec"])(
+            torch.from_numpy(case["llr"]).to(dev))
+        kb = kb.cpu().numpy()
+        for r in res2:
+            got = r["cases"][i]
+            assert np.array_equal(got["bits"], kb), (case["code"], i)
+            assert got["iters"] == int(ki), (got["iters"], int(ki))
+        print(f"[multi] rowshard D=2 {case['code']} B={len(case['llr'])} "
+              f"ET={case['spec'].early_term}: bits and iters_used "
+              f"({int(ki)}) equal {refs[case['code']].__module__}'s "
+              f"(decoded errors {int(kb.sum())})")
+    tm = res2[0]["timing"]
+    print(f"[multi] rowshard D=2 64800x32400 B=4 OMS 3 it ET off: "
+          f"{tm['decode_ms']:.3f} ms a decode, {tm['layer_steps']} layer "
+          f"steps, {tm['decode_ms'] / tm['layer_steps']:.4f} ms a layer; the "
+          f"gloo all-reduce of one layer's {tm['slab_bytes']} B slab "
+          f"{tm['allreduce_ms']:.4f} ms | {smi}")
+    print(f"[phase 21] two ranks: {t_2:.1f} s, of which the ranks' start "
+          f"(spawn, torch's import, the gloo group) "
+          f"{max(r['started'] for r in res2) - w0:.3f} s")
+
+    dp_tp = [{"kind": "dp_tp", "code": "64800x32400", "spec": specs64[et],
+              "llr": l64800, "dp": 2, "tp": 2} for et in (False, True)]
+    t0, w0 = time.perf_counter(), time.time()
+    res4 = run_ranks(_ranks_job, 4, ({"cases": dp_tp},), threads=0,
+                     timeout=300)
+    print(f"[phase 21] four ranks: {time.perf_counter() - t0:.1f} s, of "
+          f"which the ranks' start {max(r['started'] for r in res4) - w0:.3f}"
+          f" s")
+    view = effective_code(load_code("64800x32400"))
+    for i, case in enumerate(dp_tp):
+        kb, ki = S.make_streamed_decoder(view, case["spec"])(
+            torch.from_numpy(l64800).to(dev))
+        kb = kb.cpu().numpy()
+        err = kb.astype(np.int64)
+        for rank, r in enumerate(res4):
+            got = r["cases"][i]
+            row = rank // 2
+            assert np.array_equal(got["bits"], kb[4 * row:4 * row + 4])
+            assert got["iters"] == int(ki)
+            assert (got["be"], got["fe"]) == (int(err.sum()),
+                                              int(err.any(1).sum()))
+        print(f"[multi] dp x tp 2x2 64800x32400 B=8 ET={case['spec'].early_term}"
+              f": bits, iters_used ({int(ki)}), BE and FE equal K2's "
+              f"({time.perf_counter() - t0:.1f} s with the ranks' start)")
+
+    llr = _llrs(1944, 1024, 2.0, seed=1102)
+    t0, w0 = time.perf_counter(), time.time()
+    (r1,) = run_ranks(_ranks_job, 1, ({"cases": [
+        {"kind": "sharded", "code": "1944x972", "spec": specs[True],
+         "llr": llr}]},), backend="nccl", threads=0, timeout=120)
+    print(f"[phase 21] one NCCL rank: {time.perf_counter() - t0:.1f} s, of "
+          f"which its start {r1['started'] - w0:.3f} s")
+    kb, ki = K.make_cuda_decoder(load_code("1944x972"), specs[True])(
+        torch.from_numpy(llr).to(dev))
+    kb = kb.cpu().numpy()
+    got = r1["cases"][0]
+    assert np.array_equal(got["bits"], kb) and got["iters"] == int(ki)
+    assert (got["be"], got["fe"]) == (int(kb.sum()),
+                                      int(kb.any(1).sum()))
+    print(f"[multi] sharded step over one NCCL rank, 1944x972 B=1024: bits, "
+          f"iters_used and (BE, FE) {(got['be'], got['fe'])} equal K1's")
+    return k_launch
+
+
+def _native_path(dev, smi, t_k1024):
+    """Phase 22: the native host library (``golden/native.py``): its build
+    and the host's CPU; the AVX-512 decoder at 1944x972 B=1024 against K1
+    bit for bit, and its coded Mbit/s beside K1's (``t_k1024``, s a call,
+    OMS 10 ET off); a ``backend='native'`` Philox sweep point with its
+    batch-0 check against K1; the hybrid decoder at host_fraction 0, 0.05
+    and 0.25 against the device's bits, with the wall ms of each.  Without
+    AVX-512BW on the host the SIMD parts are skipped and said so.  Returns
+    K1's launches on the native sweep (its cross-check)."""
+    import numpy as np
+    import torch
+
+    from ldpcgputegra_tpu_torch.codes.registry import load_code
+    from ldpcgputegra_tpu_torch.decoder.extras import make_hybrid_decoder
+    from ldpcgputegra_tpu_torch.golden import GoldenParams
+    from ldpcgputegra_tpu_torch.golden import native
+    from ldpcgputegra_tpu_torch.kernels import layered as K
+    from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec
+
+    info = native.build()
+    with open("/proc/cpuinfo") as f:
+        cpu = {}
+        for line in f:  # the first processor's fields
+            key, _, val = line.partition(":")
+            if not key.strip() and cpu:
+                break
+            cpu.setdefault(key.strip(), val.strip())
+    flags = cpu.get("flags", "").split()
+    # a virtual machine may report the model name as "unknown": the vendor,
+    # family and model numbers beside it name the part
+    model = (f"{cpu.get('model name', 'unknown')} ({cpu.get('vendor_id')} "
+             f"family {cpu.get('cpu family')} model {cpu.get('model')})")
+    print(f"[native] {os.path.relpath(info['path'], HERE)} built in "
+          f"{info['seconds']:.2f} s; host CPU {model}, {os.cpu_count()} "
+          f"logical CPUs; avx512bw {'avx512bw' in flags}; SIMD lanes "
+          f"{64 if native.simd_available() else 0}")
+    code = load_code("1944x972")
+    B = 1024
+    k_launch = 0
+    if native.simd_available():
+        spec = LayeredSpec(algo="OMS", iters=10)
+        gp = GoldenParams(algo="OMS", iters=10)
+        llrs = [_llrs(code.N, B, 2.0, seed=1200 + i) for i in range(4)]
+        kb, _ = K.make_cuda_decoder(code, spec)(torch.from_numpy(llrs[0])
+                                                 .to(dev))
+        nb, _ = native.decode_simd_native(code, llrs[0], gp)
+        assert np.array_equal(nb, kb.cpu().numpy()), "SIMD decoder != K1"
+        native.decode_simd_native(code, llrs[1], gp)  # warm
+        t0 = time.perf_counter()
+        for x in llrs:
+            native.decode_simd_native(code, x, gp)
+        t_n = (time.perf_counter() - t0) / len(llrs)
+        print(f"[native] decode_simd_native 1944x972 B={B} OMS 10 it ET off: "
+              f"bits equal K1's; {t_n * 1e3:.3f} ms a call, "
+              f"{B * code.N / t_n / 1e6:.1f} coded Mbit/s on {model}; K1 "
+              f"{t_k1024 * 1e3:.4f} ms, {B * code.N / t_k1024 / 1e6:.1f} "
+              f"coded Mbit/s | {smi}")
+        K.launches["layered_minsum"] = 0
+        (p,), wall, _ = _timed_sweep(_sweep_cfg(
+            code="1944x972", batch=B, snr_min=2.0, snr_max=2.0,
+            max_frames=16 * B, backend="native", channel_rng="philox"))
+        k_launch = K.launches["layered_minsum"]
+        print(f"[native] backend='native' philox sweep 1944x972 B={B} 2.0 dB:"
+              f" {p.frames} frames FE={p.fe} BER={p.ber:.4e}, batch 0 checked"
+              f" against K1 ({k_launch} layered_minsum launch), "
+              f"{p.frames * code.N / wall / 1e6:.1f} coded Mbit/s on {model}")
+        assert k_launch == 1 and p.fe < p.frames
+    else:
+        print(f"[native] no AVX-512BW on this host: the SIMD decoder and "
+              f"backend='native' are not run; CPU flags: {' '.join(flags)}")
+    spec = LayeredSpec(algo="OMS", iters=10, early_term=True)
+    x = torch.from_numpy(_llrs(code.N, B, 2.0, seed=1210)).to(dev)
+    kb, ki = K.make_cuda_decoder(code, spec)(x)
+    for fraction in (0.0, 0.05, 0.25):
+        hybrid = make_hybrid_decoder(code, spec, host_fraction=fraction,
+                                     device=dev)
+        hybrid(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hb, hi = hybrid(x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert torch.equal(hb, kb), f"hybrid {fraction} != the device's bits"
+        print(f"[native] hybrid 1944x972 B={B} OMS 10 ET host_fraction "
+              f"{fraction}: bits equal K1's, iters_used {int(hi)} (K1 "
+              f"{int(ki)}); {wall * 1e3:.3f} ms wall ({int(B * fraction)} "
+              f"frames on the scalar oracle, {model}) | {smi}")
+    return k_launch
+
+
+def _node_major_path(dev):
+    """Phase 23: the plain decoder's node-major option on the card equals
+    its frame-major decode (1944x972 and the 16200x7560 view, ET on)."""
+    import torch
+
+    from ldpcgputegra_tpu_torch.codes.registry import load_code
+    from ldpcgputegra_tpu_torch.decoder import effective_code
+    from ldpcgputegra_tpu_torch.ops.layered import (
+        LayeredSpec,
+        make_layered_decoder,
+    )
+
+    spec = LayeredSpec(algo="OMS", iters=10, early_term=True)
+    for name, B in (("1944x972", 256), ("16200x7560", 32)):
+        code = effective_code(load_code(name))
+        x = torch.from_numpy(_llrs(code.N, B, 2.0, seed=1300,
+                                   rate=code.rate)).to(dev)
+        nb, ni = make_layered_decoder(code, spec, dev, node_major=True)(
+            x.t().contiguous())
+        fb, fi = make_layered_decoder(code, spec, dev)(x)
+        assert torch.equal(nb.t(), fb) and int(ni) == int(fi)
+        print(f"[node-major] {name} B={B}: [N, B] decode on the card equals "
+              f"the frame-major one (iters {int(ni)})")
+
+
 def main() -> int:
     import torch
 
@@ -1016,6 +1340,18 @@ def main() -> int:
     stream_launch = _stream_path(dev)
     phase_done(20)
 
+    # 21. the multi-device path: gloo ranks sharing the card, one NCCL rank
+    multi_launch = _multi_device(dev, smi)
+    phase_done(21)
+
+    # 22. the native host library, backend='native' and the hybrid split
+    native_launch = _native_path(dev, smi, k_times["1944x972"][0])
+    phase_done(22)
+
+    # 23. the plain decoder's node-major option on the card
+    _node_major_path(dev)
+    phase_done(23)
+
     # "route" is how the kernel is written (CUDA C++); "backend" is the
     # decoder backend that ``auto`` resolves to on the path it was driven
     # on; no one PyTorch call computes a layered min-sum decode, so its
@@ -1039,7 +1375,9 @@ def main() -> int:
         mask = ({"launches_twophase": tp_launch, "mask_ms": t_mask * 1e3,
                  "mask_off_ms": t_mask_off * 1e3,
                  "launches_scan": scan_launch,
-                 "launches_stream": stream_launch}
+                 "launches_stream": stream_launch,
+                 "launches_multi": multi_launch,
+                 "launches_native": native_launch}
                 if name == "layered_minsum" else
                 {"launches_coded": coded_launch[name]})
         if name == "layered_minsum":

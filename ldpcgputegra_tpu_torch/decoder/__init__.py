@@ -54,8 +54,13 @@ _qc_view_cache: dict[str, Optional[LdpcCode]] = {}
 
 
 def default_device() -> torch.device:
-    """The first CUDA device when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The CUDA device, the entry points' default: without a card this
+    raises rather than run the plain version on the CPU unasked."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' (--device cpu) to run the plain version on the CPU")
+    return torch.device("cuda")
 
 
 def effective_code(code: LdpcCode) -> LdpcCode:
@@ -84,8 +89,10 @@ def backend_for(code: LdpcCode, spec: LayeredSpec, device=None,
     device = torch.device(device) if device is not None else default_device()
     if backend == "native":
         raise NotImplementedError(
-            "backend='native' is not ported yet (ROADMAP queue 1 item 5: "
-            "golden/native.py)")
+            "backend='native' is a host decoder, not a decoder factory "
+            "backend (the JAX package's factory has none either): use "
+            "run_sweep(SweepConfig(backend='native')) or "
+            "golden.native.decode_simd_native")
     if spec.schedule == "flooding":
         return "torch-flooding"
     if backend == "auto":

@@ -7,6 +7,8 @@ into a build directory (``ldpcgputegra_tpu_torch/_build/``, git-ignored),
 from this checkout's sources only.  Its file name carries a hash of the
 source and of every header in ``csrc/``, so an edited source or header is
 rebuilt.  Nothing here needs nvcc or CUDA until ``build_library`` runs.
+``library_path`` and ``cached_build`` are that cache alone; the native
+host library (``golden/native.py``) builds through them with g++.
 """
 
 from __future__ import annotations
@@ -91,34 +93,65 @@ def _nvcc() -> str:
     return path
 
 
-def build_library(source: str, build_dir: str) -> dict:
-    """Compile ``source`` if this version of it has not been built yet.
+def library_path(name: str, files: Sequence[str], key: Sequence[str],
+                 build_dir: str) -> str:
+    """Where the build of ``files`` under ``key`` (strings such as flags
+    that the library also depends on) goes: ``{name}-{hash}.so`` in
+    ``build_dir``, so another version of either is another file."""
+    h = hashlib.sha1()
+    for k in key:
+        h.update(k.encode() + b"\0")
+    for path in files:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(build_dir, f"{name}-{h.hexdigest()[:12]}.so")
+
+
+def cached_build(path: str, compile_to: Callable[[str], str]) -> dict:
+    """Build the library at ``path`` unless it is there: ``compile_to(out)``
+    writes it to the temporary ``out`` and returns the compiler's log (it
+    raises ``RuntimeError`` with that log when a step fails), and ``out``
+    then replaces ``path`` at once, so concurrent builds agree on one file.
+    A failed build leaves no build directory that it made.
 
     Returns ``{"path", "seconds", "log"}``; ``seconds`` is 0 and ``log``
     empty when the library was already there.
     """
-    h = hashlib.sha1()
-    for path in [source] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
-        with open(path, "rb") as f:
-            h.update(f.read())
-    name = os.path.splitext(os.path.basename(source))[0]
-    path = os.path.join(build_dir, f"{name}-{h.hexdigest()[:12]}.so")
     if os.path.exists(path):
         return {"path": path, "seconds": 0.0, "log": ""}
-    nvcc = _nvcc()
+    build_dir = os.path.dirname(path)
+    made = not os.path.isdir(build_dir)
     os.makedirs(build_dir, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-I", CSRC, "-o", tmp, source]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        log = compile_to(tmp)
+    except BaseException:
+        if made and not os.listdir(build_dir):
+            os.rmdir(build_dir)
+        raise
     seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, path)  # atomic: concurrent builds agree on one file
-    return {"path": path, "seconds": seconds, "log": res.stdout + res.stderr}
+    os.replace(tmp, path)
+    return {"path": path, "seconds": seconds, "log": log}
+
+
+def build_library(source: str, build_dir: str) -> dict:
+    """Compile ``source`` if this version of it and of the ``csrc/``
+    headers has not been built yet (``cached_build``'s result)."""
+    files = [source] + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    name = os.path.splitext(os.path.basename(source))[0]
+
+    def compile_to(out: str) -> str:
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-I", CSRC, "-o", out, source]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        return res.stdout + res.stderr
+
+    return cached_build(library_path(name, files, (), build_dir), compile_to)
 
 
 def check_llr(llr, N: int) -> None:

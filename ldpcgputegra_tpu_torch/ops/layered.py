@@ -195,10 +195,14 @@ def make_layered_decoder(
     code: LdpcCode,
     spec: LayeredSpec = LayeredSpec(),
     device="cpu",
+    node_major: bool = False,
 ):
     """Build ``decode(llr[B, N] int8) -> (bits[B, N] uint8, iters_used)``
     running on ``device``; ``iters_used`` is a 0-d int32 tensor.  A QC
-    view's callers keep the base code's column order."""
+    view's callers keep the base code's column order.  With ``node_major``
+    the LLRs and bits are ``[N, B]`` and the decode skips the transposes
+    (JAX ``ops/layered.py::make_layered_decoder``'s option; the caller's
+    tensor is copied, never decoded in place)."""
     why = unsupported_reason(code, spec)
     if why is not None:
         raise NotImplementedError(why)
@@ -231,15 +235,22 @@ def make_layered_decoder(
     def decode(llr: torch.Tensor):
         if not isinstance(llr, torch.Tensor) or llr.dtype != torch.int8:
             raise TypeError("llr must be an int8 torch tensor")
-        if llr.dim() != 2 or llr.shape[1] != code.N:
-            raise ValueError(f"llr must be [B, {code.N}], got {tuple(llr.shape)}")
+        n_axis = 0 if node_major else 1
+        if llr.dim() != 2 or llr.shape[n_axis] != code.N:
+            want = f"[{code.N}, B]" if node_major else f"[B, {code.N}]"
+            raise ValueError(f"llr must be {want}, got {tuple(llr.shape)}")
         if llr.device.type != device.type or (
             device.index is not None and llr.device.index != device.index
         ):
             raise ValueError(f"llr is on {llr.device}, decoder on {device}")
-        if perm is not None:
-            llr = llr[:, perm]  # into the view's column order
-        V = llr.t().contiguous()  # interleave: frame-major -> node-major
+        if node_major:
+            # into the view's column order, or a copy the decode may update
+            V = (llr[perm] if perm is not None
+                 else llr.clone(memory_format=torch.contiguous_format))
+        else:
+            if perm is not None:
+                llr = llr[:, perm]  # into the view's column order
+            V = llr.t().contiguous()  # interleave: frame-major -> node-major
         B = V.shape[1]
         msgs = [torch.zeros((*idx.shape, B), dtype=_ST, device=V.device)
                 for idx in idxs]
@@ -254,9 +265,14 @@ def make_layered_decoder(
             while used < spec.iters and bool(unsat.any()):
                 unsat = unsat & iteration(V, msgs, active=unsat)
                 used += 1
-        bits = (V > 0).to(torch.uint8).t()
-        if inv_perm is not None:
-            bits = bits[:, inv_perm]  # back to the base code's order
+        bits = (V > 0).to(torch.uint8)
+        if node_major:
+            if inv_perm is not None:
+                bits = bits[inv_perm]  # back to the base code's order
+        else:
+            bits = bits.t()
+            if inv_perm is not None:
+                bits = bits[:, inv_perm]
         return bits.contiguous(), torch.tensor(used, dtype=torch.int32,
                                                device=V.device)
 

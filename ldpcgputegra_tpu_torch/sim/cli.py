@@ -53,14 +53,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "hand-written kernel for any layers (non-QC codes), "
                         "cuda-streamed = hand-written kernel with the APP in "
                         "device memory (DVB-S2 QC views, synthqc), "
-                        "torch = plain PyTorch (native: not ported yet, "
-                        "ROADMAP queue 1 item 5)")
+                        "torch = plain PyTorch, native = the AVX-512 host "
+                        "decoder (golden/native.py), its first batch of "
+                        "each point checked against the device decoder")
     g.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available, else cpu)")
+                   help="torch device (default: the card, cuda; without one "
+                        "the run refuses: --device cpu runs the plain "
+                        "version on the CPU)")
     p.add_argument("--channel-rng", dest="channel_rng", default="threefry",
                    choices=["threefry", "philox"],
-                   help="with --backend native (not ported yet, ROADMAP "
-                        "queue 1 item 5)")
+                   help="with --backend native: threefry = the port's own "
+                        "channel, philox = the native counter-based channel "
+                        "(another stream, the same statistics)")
 
     s = p.add_argument_group("SNR sweep")
     s.add_argument("--min", dest="snr_min", type=float, default=0.5)
@@ -172,14 +176,15 @@ def _print_info(cfg: SweepConfig) -> None:
 
     from ..channel.encoder import FakeEncoder, make_encoder
     from ..codes.registry import load_code
-    from ..decoder import backend_for, default_device, effective_code
+    from ..decoder import backend_for, effective_code
     from ..kernels._lib import SMS_H100
 
     base = load_code(cfg.code)
     spec = _spec(cfg)
     # flooding decodes the original code, the layered schedules its QC view
     code = base if spec.schedule == "flooding" else effective_code(base)
-    device = torch.device(cfg.device) if cfg.device else default_device()
+    # no device named: resolved as for the card, which need not be here
+    device = torch.device(cfg.device or "cuda")
     if device.type != "cuda":
         name = "cpu"
     elif torch.cuda.is_available():
@@ -199,6 +204,11 @@ def _print_info(cfg: SweepConfig) -> None:
              f" ({'random' if cfg.random_bits else 'all-zero'} info bits, "
              "encoded on the device)"))
     try:
+        if cfg.backend == "native":
+            print(f"(II) backend      : native (the AVX-512 host decoder, "
+                  f"{cfg.channel_rng} channel); each point's first batch "
+                  f"checked against {backend_for(code, spec, device)}")
+            return
         backend = backend_for(code, spec, device, cfg.backend)
     except NotImplementedError as e:
         print(f"(II) backend      : none ({e})")

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import time
 from collections import deque
@@ -91,8 +92,11 @@ class SweepConfig:
     # batches on the card (sim/scan.py), a loop of S on the CPU
     scan_steps: int = 1
 
-    backend: str = "auto"  # auto | cuda | cuda-gather | cuda-streamed | torch
-    channel_rng: str = "threefry"  # read only by backend='native'
+    # auto | cuda | cuda-gather | cuda-streamed | torch | native
+    backend: str = "auto"
+    # backend='native' only: 'threefry' = the port's own channel (a torch
+    # generator a batch), 'philox' = the native counter-based channel
+    channel_rng: str = "threefry"
     encoder: str = "fake"  # fake | table | staircase | gf2 | auto
     random_bits: bool = True  # -random (ignored by the fake encoder)
     quant_factor: int = 8
@@ -101,7 +105,7 @@ class SweepConfig:
     msg_bits: int = 6  # message quantizer width
 
     seed: int = 1234
-    device: Optional[str] = None  # None: cuda when available, else cpu
+    device: Optional[str] = None  # None: the card (raises without one)
 
     checkpoint: Optional[str] = None
     metrics: Optional[str] = None
@@ -158,11 +162,38 @@ def batch_seed(seed: int, point: int, batch: int) -> int:
         1, np.uint64)[0] >> 1)
 
 
-def _check_ported(cfg: SweepConfig) -> None:
-    if cfg.backend == "native":
+def _native_decoder(code, spec: LayeredSpec, cfg: SweepConfig):
+    """``backend='native'``: the AVX-512 host decoder on the schedule-view
+    code, a code whose check table is ``build_layers(code,
+    spec.schedule)`` in order, so that it decodes in the order the device
+    decoder does.  Returns ``decode(llr ndarray) -> bits ndarray int8``."""
+    from ..codes.code import DegreeClass, LdpcCode
+    from ..codes.schedule import build_layers
+    from ..decoder import effective_code
+    from ..golden import GoldenParams
+    from ..golden.native import decode_simd_native, simd_available
+
+    if not simd_available():
+        raise RuntimeError("backend='native' needs the AVX-512BW build of "
+                           "the native library; this host has no AVX-512BW")
+    if effective_code(code) is not code:
         raise NotImplementedError(
-            "backend='native' is not ported yet (ROADMAP queue 1 item 5: "
-            "golden/native.py)")
+            f"{code.name}: backend='native' is not available for QC-view "
+            "staircase codes (the device decodes the permuted QC view in "
+            "another check order; use backend='auto')")
+    layers = build_layers(code, spec.schedule)
+    sched_view = LdpcCode(
+        name=code.name + "-sched", N=code.N, K=code.K,
+        classes=tuple(DegreeClass(l.deg, l.idx.shape[0]) for l in layers),
+        class_idx=tuple(l.idx for l in layers),
+    )
+    gp = GoldenParams(
+        algo=cfg.algo, iters=cfg.iters, offset=cfg.offset,
+        nms_factor=cfg.nms_f / 32.0, nms_factor2=cfg.nms_f2 / 32.0,
+        early_term=cfg.early_term, minclamp=cfg.minclamp,
+        sat_var=spec.sat_var, sat_msg=spec.sat_msg,
+    )
+    return lambda llr: decode_simd_native(sched_view, llr, gp)[0]
 
 
 def run_sweep(
@@ -173,7 +204,6 @@ def run_sweep(
 ) -> SweepResult:
     """Run the sweep; ``on_point(point)`` after each SNR point,
     ``on_window(dispatch_s, fetch_s, batches)`` after each fetch window."""
-    _check_ported(cfg)
     device = torch.device(cfg.device) if cfg.device else default_device()
     code = load_code(cfg.code)
     quant = QuantSpec(factor=cfg.quant_factor, bits_llr=cfg.bits_llr)
@@ -196,9 +226,22 @@ def run_sweep(
         sat_var=(1 << (cfg.var_bits - 1)) - 1,
         sat_msg=(1 << (cfg.msg_bits - 1)) - 1,
     )
-    decoder = make_decoder(code, spec, backend=cfg.backend, device=device)
     info_only = cfg.count_bits == "info"
     is_fake = isinstance(encoder, FakeEncoder)
+    use_native = cfg.backend == "native"
+    if use_native:
+        native_decode = _native_decoder(code, spec, cfg)
+        # the device decoder only cross-checks batch 0 of each point
+        decoder = make_decoder(code, spec, backend="auto", device=device)
+        # the native Philox channel wherever the spec allows it
+        native_chan = (
+            cfg.channel_rng == "philox"
+            and chan_spec.fading == "none" and not chan_spec.normalize
+            and not chan_spec.no_channel and chan_spec.inject_flip_p == 0.0
+        )
+        native_amp = (1.0 / math.sqrt(2.0)) if cfg.qpsk else 1.0
+    else:
+        decoder = make_decoder(code, spec, backend=cfg.backend, device=device)
 
     def step(gen: torch.Generator) -> torch.Tensor:
         """One batch from ``gen``: [2] int64 (BE, FE) on the device."""
@@ -214,8 +257,47 @@ def run_sweep(
         return torch.stack(count_errors_async(
             decoded, reference=reference, info_only=info_only, k=code.K))
 
-    # batches a dispatch: scan-folded on the fake-encoder path only
-    grp = max(1, cfg.scan_steps) if is_fake else 1
+    def native_step(gen: torch.Generator, pi: int, k: int,
+                    xchecked: list) -> torch.Tensor:
+        """One batch through the native decoder: [1, 2] int64 on the CPU.
+        The first batch of a point is also decoded on the device, and the
+        point refuses to measure unless the bits are the same."""
+        from ..golden.native import awgn_quantize_native
+
+        coded = None
+        if not is_fake:
+            info = generate_info_bits(gen, cfg.batch, code.K, cfg.random_bits)
+            coded = encoder.encode(info)
+        if native_chan:
+            llr_np = awgn_quantize_native(
+                cfg.seed, (pi << 32) | k, cfg.batch, code.N,
+                sigma=channel.sigma, factor=channel.factor, sat=quant.sat,
+                coded=None if coded is None else coded.cpu().numpy(),
+                amp=native_amp)
+            llr = None
+        else:
+            llr = (channel.generate_zero_int8(gen, cfg.batch) if is_fake
+                   else channel.generate_int8(gen, coded))
+            llr_np = llr.cpu().numpy()
+        bits = native_decode(llr_np)
+        if not xchecked[0]:
+            if llr is None:
+                llr = torch.from_numpy(llr_np).to(device)
+            ref, _ = decoder(llr)
+            if not np.array_equal(ref.cpu().numpy().view(np.int8), bits):
+                raise AssertionError(
+                    f"{code.name}: the native decode differs from the device "
+                    f"decoder's on the first batch of point {pi}: refusing "
+                    "to measure")
+            xchecked[0] = True
+        err = bits != (0 if coded is None else coded.cpu().numpy())
+        if info_only:
+            err = err[:, : code.K]
+        be_pf = err.sum(axis=1)
+        return torch.tensor([[int(be_pf.sum()), int((be_pf != 0).sum())]])
+
+    # batches a dispatch: scan-folded on the fake-encoder device path only
+    grp = max(1, cfg.scan_steps) if is_fake and not use_native else 1
     scan = ScanSteps(step, grp, device) if grp > 1 else None
     metrics_f = open(cfg.metrics, "a") if cfg.metrics else None
     ckpt = _load_ckpt(cfg.checkpoint)
@@ -245,8 +327,14 @@ def run_sweep(
                 analyzer, snr, metrics=metrics_f, start_elapsed=resumed_elapsed
             )
 
-            def dispatch(k: int, pi=pi) -> torch.Tensor:
+            xchecked = [False]
+
+            def dispatch(k: int, pi=pi, xchecked=xchecked) -> torch.Tensor:
                 """Batches k .. k + grp - 1: [grp, 2] counts, not fetched."""
+                if use_native:
+                    return native_step(
+                        channel.generator(batch_seed(cfg.seed, pi, k)), pi, k,
+                        xchecked)
                 if scan is not None:
                     return scan([batch_seed(cfg.seed, pi, k + j)
                                  for j in range(grp)])

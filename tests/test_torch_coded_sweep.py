@@ -132,8 +132,21 @@ def test_cli_coded_flooding_and_scan_flags(capfd):
 
 
 def test_native_backend_still_refused():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        run_sweep(_cfg(backend="native"), progress=False)
+    """The decoder factory still refuses backend='native' (JAX's has no
+    native backend either); the sweep takes it, and on the coded path with
+    the port's own channel it counts what backend='auto' counts, as the
+    two decoders agree bit for bit on the same LLRs."""
+    from ldpcgputegra_tpu_torch.decoder import make_decoder
+    from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec
+
+    with pytest.raises(NotImplementedError, match="run_sweep"):
+        make_decoder(load_code("576x288"), LayeredSpec(), backend="native",
+                     device="cpu")
+    native = run_sweep(_cfg(backend="native"), progress=False).points
+    auto = run_sweep(_cfg(), progress=False).points
+    assert [(p.frames, p.be, p.fe) for p in native] == \
+        [(p.frames, p.be, p.fe) for p in auto]
+    assert native[0].fe > 0
 
 
 def test_sweep_trace_refuses_without_a_card(monkeypatch, capfd):

@@ -3,8 +3,10 @@ convergence mask, the gather kernel for any layers, the streamed kernel
 for QC codes and views beyond shared memory, and the probe kernels of the
 benchmark-suite path) against their plain PyTorch version, the
 two-phase decoder against its CPU result, a CUDA graph's batches against
-eager ones, and the encoders, flooding and ``DecodeStream`` on the card
-against the CPU.  Every test here needs an NVIDIA GPU and skips without
+eager ones, the encoders, flooding and ``DecodeStream`` on the card
+against the CPU, gloo ranks sharing the card (and one NCCL rank) against
+the kernels, and the native host decoder, the hybrid split and the
+node-major plain decoder against K1.  Every test here needs an NVIDIA GPU and skips without
 one.
 
 On a machine with a card (and without jax, which ``tests/conftest.py``
@@ -610,3 +612,81 @@ def test_decode_stream_on_the_card(dev):
     for x, (bits, iters) in zip(xs, st.drain()):
         ref, ref_it = direct(x)
         assert np.array_equal(bits, ref.cpu().numpy()) and iters == int(ref_it)
+
+
+def _ranks_on_the_card(world, cases, backend="gloo"):
+    from ldpcgputegra_tpu_torch.parallel.dryrun import decode_cases
+    from ldpcgputegra_tpu_torch.parallel.launch import run_ranks
+
+    return run_ranks(decode_cases, world, (cases, "cuda"), backend=backend,
+                     threads=0)
+
+
+@pytest.mark.parametrize("et", [False, True])
+def test_ranks_on_one_card_equal_the_kernels(dev, et):
+    """Two gloo ranks on the one card: the sharded step through K1 and the
+    row-sharded decode at 2304x1152 equal K1's bits and iters_used."""
+    from ldpcgputegra_tpu_torch.decoder import make_decoder
+
+    spec = LayeredSpec(algo="OMS", iters=8, early_term=et)
+    dp_llr = _llrs(1944, 512, seed=21)
+    row_llr = _llrs(2304, 8, seed=22)
+    res = _ranks_on_the_card(2, [
+        {"kind": "sharded", "code": "1944x972", "spec": spec, "llr": dp_llr},
+        {"kind": "rowshard", "code": "2304x1152", "spec": spec,
+         "llr": row_llr}])
+    kb, ki = K.make_cuda_decoder(load_code("1944x972"), spec)(
+        torch.from_numpy(dp_llr).to(dev))
+    rb, ri = make_decoder(load_code("2304x1152"), spec, device=dev)(
+        torch.from_numpy(row_llr).to(dev))
+    np.testing.assert_array_equal(
+        np.concatenate([r[0]["bits"] for r in res]), kb.cpu().numpy())
+    for r in res:
+        assert r[0]["iters"] == int(ki)
+        np.testing.assert_array_equal(r[1]["bits"], rb.cpu().numpy())
+        assert r[1]["iters"] == int(ri)
+
+
+def test_nccl_world_of_one(dev):
+    """The sharded step over one NCCL rank (NCCL refuses two ranks on one
+    card) counts what K1 decodes."""
+    spec = LayeredSpec(algo="OMS", iters=8, early_term=True)
+    llr = _llrs(1944, 256, seed=23)
+    (r,) = _ranks_on_the_card(1, [{"kind": "sharded", "code": "1944x972",
+                                   "spec": spec, "llr": llr}], "nccl")
+    kb, _ = K.make_cuda_decoder(load_code("1944x972"), spec)(
+        torch.from_numpy(llr).to(dev))
+    err = kb.cpu().numpy() != 0
+    np.testing.assert_array_equal(r[0]["bits"], kb.cpu().numpy())
+    assert (r[0]["be"], r[0]["fe"]) == (int(err.sum()), int(err.any(1).sum()))
+
+
+def test_native_and_hybrid_equal_k1(dev):
+    """The AVX-512 host decoder (where the host has AVX-512BW) and the
+    hybrid split give K1's bits at 1944x972."""
+    from ldpcgputegra_tpu_torch.decoder.extras import make_hybrid_decoder
+    from ldpcgputegra_tpu_torch.golden import GoldenParams
+    from ldpcgputegra_tpu_torch.golden import native
+
+    code = load_code("1944x972")
+    spec = LayeredSpec(algo="OMS", iters=10, early_term=True)
+    llr = _llrs(code.N, 256, seed=24)
+    kb, ki = K.make_cuda_decoder(code, spec)(torch.from_numpy(llr).to(dev))
+    if native.simd_available():
+        nb, _ = native.decode_simd_native(code, llr, GoldenParams(
+            algo="OMS", iters=10, early_term=True))
+        np.testing.assert_array_equal(nb, kb.cpu().numpy())
+    for fraction in (0.0, 0.25):
+        hb, hi = make_hybrid_decoder(code, spec, host_fraction=fraction,
+                                     device=dev)(torch.from_numpy(llr))
+        assert torch.equal(hb, kb)
+
+
+def test_node_major_on_the_card(dev):
+    code = load_code("1944x972")
+    spec = LayeredSpec(algo="OMS", iters=6, early_term=True)
+    llr = torch.from_numpy(_llrs(code.N, 64, seed=25)).to(dev)
+    nb, ni = make_layered_decoder(code, spec, dev, node_major=True)(
+        llr.t().contiguous())
+    fb, fi = make_layered_decoder(code, spec, dev)(llr)
+    assert torch.equal(nb.t(), fb) and int(ni) == int(fi)

@@ -21,9 +21,12 @@ import ldpcgputegra_tpu_torch.kernels.layered as K
 for name in ("sim.cli", "decoder.twophase", "bench.et_study", "sim.scan",
              "decoder.stream", "channel.bitgen", "channel.encoder",
              "ops.flooding", "golden", "golden.decoder", "codes.alist",
-             "utils", "utils.profiling", "utils.debug"):
+             "utils", "utils.profiling", "utils.debug", "parallel",
+             "parallel.mesh", "parallel.sharded", "parallel.rowshard",
+             "parallel.launch", "parallel.dryrun", "sim.distributed",
+             "golden.native", "decoder.extras"):
     assert "ldpcgputegra_tpu_torch." + name in names, names
-assert len(names) >= 30, names
+assert len(names) >= 38, names
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib", "triton",
                                                "ldpcgputegra_tpu.")))

@@ -137,13 +137,8 @@ def test_sweep_qef_cutoff():
     (dict(schedule="flooding"), "flooding"),
 ])
 def test_sweep_unported_options_raise(kw, match):
-    """The name is historical: of the four options once refused, only
-    backend='native' still is (ROADMAP queue 1 item 5); the coded path,
-    scan_steps > 1 and flooding now run."""
-    if match == "native":
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            run_sweep(_tiny_cfg(**kw), progress=False)
-        return
+    """The name is historical: the four options once refused (the coded
+    path, backend='native', scan_steps > 1 and flooding) all run now."""
     (p,) = run_sweep(_tiny_cfg(snr_max=1.0, max_frames=256, **kw),
                      progress=False).points
     assert p.frames >= 256 and 0 < p.fe <= p.frames
@@ -193,7 +188,7 @@ def test_backend_routing():
                     torch.device("cuda"))
     assert backend_for(qc, LayeredSpec(schedule="flooding"),
                        torch.device("cuda")) == "torch-flooding"
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="run_sweep"):
         backend_for(qc, spec, "cpu", backend="native")
     with pytest.raises(ValueError):
         backend_for(qc, spec, "cpu", backend="pallas")
