@@ -47,7 +47,11 @@ NCCL rank the sharded step against K1; (phase 22) the native host library
 ``backend='native'`` Philox sweep point checked against K1, the hybrid
 decoder at host fractions 0, 0.05 and 0.25 against the device's bits);
 (phase 23) the plain decoder's node-major option on the card against its
-frame-major decode.
+frame-major decode; (phase 24) the BER spot check (``bench/ber_check.py``:
+four points of the book, batch 0 through each kernel and the plain
+decoder with identical counters, the sweep at each point held against the
+JAX book's stored point by an exact test), with the three decode kernels'
+launches in its sweeps.
 Imports nothing of JAX.  Exits non-zero, before printing any result, when
 there is no CUDA device or the package is not beside this script; any
 failing phase exits non-zero.  The last line of standard output is
@@ -991,6 +995,46 @@ def _node_major_path(dev):
               f"the frame-major one (iters {int(ni)})")
 
 
+def _ber_spots(dev, smi):
+    """Phase 24, the BER spot check (``bench/ber_check.py``): at each of
+    its four ``SPOTS`` on the card, batch 0 through the kernel and through
+    the plain decoder (identical bits and counters, or ``SystemExit``),
+    then ``run_sweep`` at the spot held against the JAX book's stored
+    point by the exact test (p >= ``P_FAIL``).  Returns each decode
+    kernel's launches in the sweeps (stage 1's comparison not counted)."""
+    import torch
+
+    from ldpcgputegra_tpu_torch.bench import ber_check
+    from ldpcgputegra_tpu_torch.kernels import gather as G
+    from ldpcgputegra_tpu_torch.kernels import layered as K
+    from ldpcgputegra_tpu_torch.kernels import streamed as S
+
+    counters = {"layered_minsum": K.launches, "gather_minsum": G.launches,
+                "streamed_minsum": S.launches}
+    launches = dict.fromkeys(counters, 0)
+    for spot in ber_check.SPOTS:
+        code, algo, iters, snr, batch, _ = spot
+        dec = ber_check.decoder_stage(code, algo, iters, snr, batch, dev)
+        torch.cuda.synchronize()
+        for name, c in counters.items():
+            c[name] = 0
+        rec = ber_check.sweep_stage(spot, dev)
+        torch.cuda.synchronize()
+        for name, c in counters.items():
+            launches[name] += c[name]
+        print(f"[ber] {code} {algo} {iters} it {snr} dB B={batch}: batch 0 "
+              f"through {dec['backend']} and the plain decoder: BE {dec['be']} "
+              f"FE {dec['fe']} both; sweep frames={rec['frames']} "
+              f"FE={rec['fe']} FER={rec['fer']:.4e}, stored FER "
+              f"{rec['stored_fer']:.4e} ({rec['stored_fe']}/"
+              f"{rec['stored_frames']}), p={rec['p']:.4g}, "
+              f"{rec['mbps']:.1f} coded Mbit/s | {smi}")
+        assert rec["p"] >= ber_check.P_FAIL, f"{spot} fails the exact test"
+    print(f"[ber] launches in the spots' sweeps: {launches}")
+    assert all(n > 0 for n in launches.values()), launches
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1352,6 +1396,10 @@ def main() -> int:
     _node_major_path(dev)
     phase_done(23)
 
+    # 24. the BER spot check: four points of the book against the JAX book
+    ber_launch = _ber_spots(dev, smi)
+    phase_done(24)
+
     # "route" is how the kernel is written (CUDA C++); "backend" is the
     # decoder backend that ``auto`` resolves to on the path it was driven
     # on; no one PyTorch call computes a layered min-sum decode, so its
@@ -1380,6 +1428,7 @@ def main() -> int:
                  "launches_native": native_launch}
                 if name == "layered_minsum" else
                 {"launches_coded": coded_launch[name]})
+        mask["launches_ber"] = ber_launch[name]
         if name == "layered_minsum":
             err = max(err, mask_err)
         kernels.append({

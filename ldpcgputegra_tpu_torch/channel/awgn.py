@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from ..decoder import default_device
 from ..quant import QuantSpec, optimal_llr_factor, quantize_llr
 
 __all__ = ["ChannelSpec", "sigma_for_snr", "AwgnChannel"]
@@ -100,16 +101,18 @@ class AwgnChannel:
     """AWGN channel over a [batch, N] frame block.
 
     ``configure(snr_db)`` fixes sigma, then ``generate*`` produce received
-    LLR frames on ``device`` from the generator they are given.
+    LLR frames on ``device`` (default: ``decoder.default_device()``, the
+    card, raising without one) from the generator they are given.
     """
 
     def __init__(self, n: int, k: int, spec: ChannelSpec = ChannelSpec(),
-                 device="cpu"):
+                 device=None):
         self.n = n
         self.k = k
         self.spec = spec
         self.rate = k / n
-        self.device = torch.device(device)
+        self.device = (torch.device(device) if device is not None
+                       else default_device())
         self.sigma: Optional[float] = None
         self.factor: Optional[float] = None
         # sigma, factor, 2/sigma^2 as float32 on the device (see above)

@@ -39,11 +39,15 @@ from ..ops.layered import LayeredSpec
 __all__ = ["make_twophase_decoder", "syndrome_fn"]
 
 
-def syndrome_fn(code: LdpcCode, device="cpu"):
+def syndrome_fn(code: LdpcCode, device=None):
     """``ok(bits[B, N] uint8) -> ok[B] bool``: every check of ``code`` is
     satisfied.  On the code's own edge table and column order (for a
-    staircase code, the original code, not its QC view), on ``device``."""
-    device = torch.device(device)
+    staircase code, the original code, not its QC view), on ``device``
+    (default: ``decoder.default_device()``, the card, raising without
+    one)."""
+    from . import default_device
+
+    device = torch.device(device) if device is not None else default_device()
     # per degree class, [deg, count]: the VN of edge j of each check
     tables = [torch.as_tensor(np.ascontiguousarray(ci.T, dtype=np.int64),
                               device=device) for ci in code.class_idx]

@@ -35,7 +35,7 @@ def _cfg(**kw):
 
 
 def _raw_ber(code, snr):
-    ch = AwgnChannel(code.N, code.K)
+    ch = AwgnChannel(code.N, code.K, device="cpu")
     ch.configure(snr)
     return float((ch.generate_zero_int8(ch.generator(3), 64) > 0)
                  .float().mean())

@@ -690,3 +690,27 @@ def test_node_major_on_the_card(dev):
         llr.t().contiguous())
     fb, fi = make_layered_decoder(code, spec, dev)(llr)
     assert torch.equal(nb.t(), fb) and int(ni) == int(fi)
+
+
+def test_channel_and_syndrome_default_to_the_card(dev):
+    from ldpcgputegra_tpu_torch.channel.awgn import AwgnChannel
+
+    code = load_code("576x288")
+    ch = AwgnChannel(code.N, code.K)
+    ch.configure(2.0)
+    llr = ch.generate_zero_int8(ch.generator(1), 64)
+    assert ch.device.type == "cuda" and llr.is_cuda
+    bits = torch.zeros((4, code.N), dtype=torch.uint8, device=dev)
+    ok = syndrome_fn(code)(bits)
+    assert ok.is_cuda and bool(ok.all())
+
+
+def test_ber_spot_on_the_card(dev):
+    """``bench/ber_check.py``'s stages 1 and 3 at a small spot: the kernel
+    and the plain decoder agree on batch 0, and the sweep's FER passes the
+    exact test against the JAX book's 576x288 point at 2.5 dB."""
+    from ldpcgputegra_tpu_torch.bench import ber_check
+
+    rec = ber_check.check_spot(("576x288", "OMS", 10, 2.5, 4096, 4), dev)
+    assert rec["decoder_batch0"]["backend"] == "cuda"
+    assert rec["stored_fe"] == 122 and rec["p"] >= ber_check.P_FAIL

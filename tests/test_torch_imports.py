@@ -24,9 +24,11 @@ for name in ("sim.cli", "decoder.twophase", "bench.et_study", "sim.scan",
              "utils", "utils.profiling", "utils.debug", "parallel",
              "parallel.mesh", "parallel.sharded", "parallel.rowshard",
              "parallel.launch", "parallel.dryrun", "sim.distributed",
-             "golden.native", "decoder.extras"):
+             "golden.native", "decoder.extras", "bench.ber_curves",
+             "bench.ber_tail", "bench.ber_topup", "bench.ber_check",
+             "bench.air"):
     assert "ldpcgputegra_tpu_torch." + name in names, names
-assert len(names) >= 38, names
+assert len(names) >= 59, names
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib", "triton",
                                                "ldpcgputegra_tpu.")))

@@ -106,7 +106,7 @@ def test_make_decoder_mask_matches_jax(name, backend):
     np.testing.assert_array_equal(bits.numpy(), want_bits)
     assert int(it) == want_iters
     np.testing.assert_array_equal(ok.numpy(), want_ok)
-    assert torch.equal(ok, syndrome_fn(code)(bits))
+    assert torch.equal(ok, syndrome_fn(code, "cpu")(bits))
     assert 0 < int(ok.sum()) < 16, "the batch must be mixed"
 
 

@@ -83,7 +83,7 @@ def test_sigma_matches_reference(es_n0, qpsk):
 
 
 def test_noise_std_within_one_percent():
-    ch = AwgnChannel(1024, 512)
+    ch = AwgnChannel(1024, 512, device="cpu")
     sigma = ch.configure(1.5)
     y = ch.generate_float(ch.generator(3), torch.zeros((1024, 1024),
                                                        dtype=torch.int8))
@@ -97,7 +97,7 @@ def test_raw_hard_error_rate_matches_jax_channel(snr):
     """Quantized LLRs > 0 are raw bit errors on the all-zero codeword; the
     port's rate is within 4 binomial sigma of the JAX channel's."""
     n, batch = 1944, 540  # 1,049,760 samples each
-    ch = AwgnChannel(n, 972)
+    ch = AwgnChannel(n, 972, device="cpu")
     ch.configure(snr)
     q = ch.generate_zero_int8(ch.generator(11), batch)
     jch = JChannel(n, 972)
@@ -115,42 +115,43 @@ def test_channel_modes():
     ones = torch.ones((256, 1024), dtype=torch.int8)
     n = zeros.numel()
     # noiseless: exact BPSK symbols, quantized to ±factor
-    ch = AwgnChannel(1024, 512, ChannelSpec(no_channel=True))
+    ch = AwgnChannel(1024, 512, ChannelSpec(no_channel=True), device="cpu")
     ch.configure(1.0)
     g = ch.generator(0)
     assert torch.equal(ch.generate_int8(g, zeros),
                        torch.full_like(zeros, -8))
     assert torch.equal(ch.generate_int8(g, ones), torch.full_like(ones, 8))
     # QPSK amplitude 1/sqrt(2)
-    ch = AwgnChannel(1024, 512, ChannelSpec(qpsk=True))
+    ch = AwgnChannel(1024, 512, ChannelSpec(qpsk=True), device="cpu")
     s = ch.configure(1.0)
     y = ch.generate_float(ch.generator(1), zeros).double()
     assert abs(float(y.mean()) + 1 / math.sqrt(2)) < 4 * s / math.sqrt(n)
     # Rayleigh: E[h^2] = 1, so the mean stays -1
-    ch = AwgnChannel(1024, 512, ChannelSpec(fading="rayleigh"))
+    ch = AwgnChannel(1024, 512, ChannelSpec(fading="rayleigh"), device="cpu")
     ch.configure(3.0)
     y = ch.generate_float(ch.generator(2), zeros).double()
     assert abs(float(y.mean()) + 1.0) < 4 * float(y.std()) / math.sqrt(n)
     # normalization by 2/sigma^2
-    ch = AwgnChannel(1024, 512, ChannelSpec(normalize=True))
+    ch = AwgnChannel(1024, 512, ChannelSpec(normalize=True), device="cpu")
     s = ch.configure(2.0)
     y = ch.generate_float(ch.generator(4), zeros).double()
     assert abs(float(y.mean()) + 2 / s**2) < 4 * (2 / s) / math.sqrt(n)
     # sign-flip injection: the flipped share is p within 4 binomial sigma
     p = 0.1
-    ch = AwgnChannel(1024, 512, ChannelSpec(no_channel=True, inject_flip_p=p))
+    ch = AwgnChannel(1024, 512, ChannelSpec(no_channel=True, inject_flip_p=p),
+                     device="cpu")
     ch.configure(1.0)
     q = ch.generate_int8(ch.generator(5), zeros)
     share = float((q > 0).double().mean())
     assert abs(share - p) < 4 * math.sqrt(p * (1 - p) / n)
     # the sigma-adaptive quantizer scale
-    ch = AwgnChannel(1024, 512, ChannelSpec(opt_llr=True))
+    ch = AwgnChannel(1024, 512, ChannelSpec(opt_llr=True), device="cpu")
     s = ch.configure(1.0)
     assert ch.factor == optimal_llr_factor(s)
 
 
 def test_same_seed_same_frames():
-    ch = AwgnChannel(576, 288)
+    ch = AwgnChannel(576, 288, device="cpu")
     ch.configure(1.0)
     a = ch.generate_zero_int8(ch.generator(42), 8)
     b = ch.generate_zero_int8(ch.generator(42), 8)
@@ -159,4 +160,20 @@ def test_same_seed_same_frames():
     assert a.shape == (8, 576) and a.dtype == torch.int8
     assert int(a.abs().max()) <= 31
     with pytest.raises(RuntimeError):
-        AwgnChannel(576, 288).generate_zero_int8(ch.generator(0), 1)
+        AwgnChannel(576, 288, device="cpu").generate_zero_int8(
+            ch.generator(0), 1)
+
+
+def test_channel_and_syndrome_default_to_the_card(monkeypatch):
+    """Without a device, ``AwgnChannel`` and ``syndrome_fn`` take
+    ``decoder.default_device()``: the card, and without one they raise
+    rather than run on the CPU unasked."""
+    from ldpcgputegra_tpu_torch.codes.registry import load_code
+    from ldpcgputegra_tpu_torch.decoder.twophase import syndrome_fn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AwgnChannel(576, 288)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        syndrome_fn(load_code("576x288"))
+    assert AwgnChannel(576, 288, device="cpu").device.type == "cpu"

@@ -73,7 +73,7 @@ def test_decode_keeps_converged_frames_and_redecodes_the_rest(per_frame):
     bits, stats = _port(3, 10)(llr)
     b3 = make_layered_decoder(code, LayeredSpec(algo="OMS", iters=3))(llr)[0]
     b10 = make_layered_decoder(code, LayeredSpec(algo="OMS", iters=10))(llr)[0]
-    ok3 = syndrome_fn(code)(b3)
+    ok3 = syndrome_fn(code, "cpu")(b3)
     assert stats["phase2_frames"] == int((~ok3).sum())
     assert torch.equal(bits[ok3], b3[ok3]) and torch.equal(bits[~ok3],
                                                            b10[~ok3])
@@ -89,7 +89,7 @@ def test_syndrome_fn_matches_jax(name):
     bits = np.zeros((12, code.N), np.uint8)
     bits[:6] = rng.integers(0, 2, (6, code.N), dtype=np.uint8)
     bits[np.arange(7, 12), rng.integers(0, code.N, 5)] = 1
-    got = syndrome_fn(code)(torch.from_numpy(bits))
+    got = syndrome_fn(code, "cpu")(torch.from_numpy(bits))
     want = np.asarray(j_syndrome_fn(j_load_code(name))(bits))
     assert got.dtype == torch.bool
     np.testing.assert_array_equal(got.numpy(), want)
