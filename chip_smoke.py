@@ -51,7 +51,12 @@ frame-major decode; (phase 24) the BER spot check (``bench/ber_check.py``:
 four points of the book, batch 0 through each kernel and the plain
 decoder with identical counters, the sweep at each point held against the
 JAX book's stored point by an exact test), with the three decode kernels'
-launches in its sweeps.
+launches in its sweeps; (phase 25) the ported JAX tools: ``bench/
+hw_validate.py --quick`` (K1 against K2 at 2304x1152 B=8192 and 1944x972
+B=1024, the gather kernel against the plain version at 4000x2000, the
+first tail code), ``bench/et_skip_diag.py --quick`` (576x288),
+``bench/vectors_check.py`` and ``bench/encoder_matrix_check.py``, with the
+decode kernels' launches in them.
 Imports nothing of JAX.  Exits non-zero, before printing any result, when
 there is no CUDA device or the package is not beside this script; any
 failing phase exits non-zero.  The last line of standard output is
@@ -1035,6 +1040,52 @@ def _ber_spots(dev, smi):
     return launches
 
 
+def _tools(dev, out_dir):
+    """Phase 25: the ported JAX tools on the card, each failing the run on a
+    mismatch (``SystemExit``): ``hw_validate --quick`` (K1 against K2 on
+    K1's codes, the gather kernel and a tail code against the plain
+    version, bit for bit), ``et_skip_diag --quick`` on 576x288,
+    ``vectors_check`` and ``encoder_matrix_check``.  Returns each decode
+    kernel's launches in them."""
+    import torch
+
+    from ldpcgputegra_tpu_torch.bench import (
+        encoder_matrix_check,
+        et_skip_diag,
+        hw_validate,
+        vectors_check,
+    )
+    from ldpcgputegra_tpu_torch.kernels import gather as G
+    from ldpcgputegra_tpu_torch.kernels import layered as K
+    from ldpcgputegra_tpu_torch.kernels import streamed as S
+
+    counters = {"layered_minsum": K.launches, "gather_minsum": G.launches,
+                "streamed_minsum": S.launches}
+    for name, c in counters.items():
+        c[name] = 0
+    hw_out = os.path.join(out_dir, "HWVALIDATE.md")
+    assert hw_validate.main(["--which", "streamed,gather,tail", "--quick",
+                             "--out", hw_out]) == 0
+    assert et_skip_diag.main(["--quick", "--out",
+                              os.path.join(out_dir, "ET.md")]) == 0
+    assert vectors_check.main([]) == 0
+    assert encoder_matrix_check.main([]) == 0
+    torch.cuda.synchronize()
+    launches = {name: c[name] for name, c in counters.items()}
+    with open(hw_out) as f:
+        recs = [json.loads(line) for line in f if line.startswith("{")]
+    for r in recs:
+        if (r["a"], r["b"]) == ("cuda", "cuda-streamed"):
+            k1, k2 = r["rows"]
+            print(f"[tools] {r['code']} B={r['batch']}: K1 ({k1['variant']}) "
+                  f"{k1['ms']:.4f} ms, K2 ({k2['variant']}) {k2['ms']:.4f} "
+                  f"ms, K2 / K1 {k2['ms'] / k1['ms']:.3f}, bit-exact | "
+                  f"{r['card']}")
+    print(f"[tools] launches in the tools: {launches}")
+    assert all(n > 0 for n in launches.values()), launches
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1400,6 +1451,11 @@ def main() -> int:
     ber_launch = _ber_spots(dev, smi)
     phase_done(24)
 
+    # 25. the ported JAX tools: K1 against K2, the skip diagnosis, the golden
+    # vectors and the derived 16200x10800 matrix
+    tools_launch = _tools(dev, out_dir)
+    phase_done(25)
+
     # "route" is how the kernel is written (CUDA C++); "backend" is the
     # decoder backend that ``auto`` resolves to on the path it was driven
     # on; no one PyTorch call computes a layered min-sum decode, so its
@@ -1429,6 +1485,7 @@ def main() -> int:
                 if name == "layered_minsum" else
                 {"launches_coded": coded_launch[name]})
         mask["launches_ber"] = ber_launch[name]
+        mask["launches_tools"] = tools_launch[name]
         if name == "layered_minsum":
             err = max(err, mask_err)
         kernels.append({

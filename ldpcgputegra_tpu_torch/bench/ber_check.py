@@ -181,7 +181,13 @@ def book_markdown() -> str:
         "`coded-info` curve, its `zero-info` twin), with the exact "
         "two-sided conditional test's p on the two frame-error counts "
         f"(`bench/ber_check.py`; a point fails at p < {P_FAIL}).  BER is "
-        "shown as a ratio, untested.  Coded Mbit/s and seconds are the "
+        "shown as a ratio, untested.  The `coded-info` twin's BER runs "
+        "above its `zero-info` twin's at equal FER by the hard decision's "
+        "tie: an APP of 0 decides bit 0, an error at a codeword 1 that the "
+        "all-zero twin does not make; min-sum is otherwise sign-symmetric, "
+        "and those positions are the whole gap in both packages "
+        "(`tests/test_torch_coded_info_jax.py`): the reference's "
+        "convention, not a fault.  Coded Mbit/s and seconds are the "
         "point's own clock (on the host for `native+philox`).  "
         f"{_summary(rows)}.\n\n",
         "| curve | Eb/N0 | backend | frames | FE | FER | Mbit/s | s | against "

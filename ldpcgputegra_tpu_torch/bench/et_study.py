@@ -1,9 +1,12 @@
 """Two-phase early termination against the kernels' own early termination,
 on the card: the port of ``tools/run_et_pipelined.py`` with the
-``kernel_et`` row of ``tools/run_et_study.py``.
+``kernel_et`` row and the convergence statistics of
+``tools/run_et_study.py``.
 
     python -m ldpcgputegra_tpu_torch.bench.et_study [--only SUBSTRING]
         [--out bench_results/et_study.jsonl] [--trace]
+    python -m ldpcgputegra_tpu_torch.bench.et_study --conv-only
+        [--out benchmarks_torch/ET_convergence.md] [--device cpu]
 
 For each of the 13 operating points in ``CONFIGS`` (code, batch, Eb/N0,
 algorithm, k1), four ways of decoding a window of ``N_BATCH`` batches at a
@@ -31,6 +34,16 @@ under ``torch.profiler`` and prints its device time by kernel and the
 device's busy share of the traced wall.  Nothing
 is routed from these numbers: ``run_sweep`` keeps the kernels' early
 termination.
+
+Each record also carries ``frac_converged``: ``convergence_stats`` on the
+point's first batch, P(a frame converged within k iterations) for k in
+(4, 5, 6, 10), decoded with ET on so that a converged frame is frozen at
+its first convergence (monotone in k).  ``--conv-only`` measures only
+those fractions, over the JAX study's ``CONV_CONFIGS`` x ``ALGOS`` (one
+``AwgnChannel`` batch a point), and writes them to ``--out`` (default
+``benchmarks_torch/ET_convergence.md``).  Decoders are bit-exact across
+backends, so the fractions do not depend on the card; they run there
+like the rest of the tool, and on the CPU only with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -39,7 +52,6 @@ import argparse
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -48,9 +60,10 @@ import torch
 from ..channel.awgn import AwgnChannel
 from ..codes.registry import load_code
 from ..decoder import backend_for, make_decoder
-from ..decoder.twophase import make_twophase_decoder
+from ..decoder.twophase import make_twophase_decoder, syndrome_fn
 from ..ops.layered import LayeredSpec
-from .harness import device_time_by_kernel
+from .ber_curves import BENCH_DIR, card_name
+from .harness import awgn_batches, device_time_by_kernel
 
 # (code, batch, Eb/N0 dB, algo, k1): the JAX study's operating points; the
 # second SNR of a code is its P(converged within 5 iterations) >= 0.99
@@ -73,6 +86,34 @@ CONFIGS = [
 N_BATCH = 96
 REPEATS = 3
 OUT = os.path.join("bench_results", "et_study.jsonl")
+# the JAX study's convergence grid (tools/run_et_study.py:41-48): (code,
+# batch, Eb/N0 dBs) x ALGOS
+CONV_CONFIGS = [
+    ("576x288", 16384, [3.0, 3.5]),
+    ("1944x972", 8192, [2.25, 2.75]),
+    ("2304x1152", 8192, [2.0, 2.5]),
+    ("4000x2000", 4096, [2.0, 2.25]),
+]
+ALGOS = ["2NMS", "OMS"]
+CONV_KS = (4, 5, 6, 10)
+CONV_OUT = os.path.join(BENCH_DIR, "ET_convergence.md")
+
+
+def convergence_stats(code, algo: str, minclamp: str, llr: torch.Tensor,
+                      device) -> dict:
+    """{k: P(a frame of ``llr`` converged within k iterations)} for k in
+    ``CONV_KS``, on ``device``: each decode runs ET on, so a frame that
+    converges is frozen at its first convergence and the fraction is
+    monotone in k (a decode at a fixed depth k would measure "syndrome
+    satisfied at k", which 2NMS can undo at deeper k)."""
+    ok = syndrome_fn(code, device)
+    conv = {}
+    for k in CONV_KS:
+        dec = make_decoder(code, LayeredSpec(algo=algo, iters=k,
+                                             minclamp=minclamp,
+                                             early_term=True), device=device)
+        conv[k] = float(ok(dec(llr)[0]).float().mean())
+    return conv
 
 
 def _timed(fn, dev):
@@ -115,6 +156,7 @@ def study_one(ci: int, name: str, batch: int, snr: float, algo: str, k1: int,
     mean_bad = warm_agg["phase2_frames"] / len(w)
     ftail = max(128, -(-int(1.5 * mean_bad + 1) // 128) * 128)
     tp.warm_fused(w[0], ftail)
+    conv = convergence_stats(code, algo, spec.minclamp, w[0], dev)
     del w
 
     def best(r0: int, run):
@@ -139,6 +181,7 @@ def study_one(ci: int, name: str, batch: int, snr: float, algo: str, k1: int,
     mbit = N_BATCH * batch * code.N / 1e6
     rec = {
         "code": name, "algo": algo, "snr_db": snr, "k1": k1, "batch": batch,
+        "frac_converged": conv,
         "n_batches": N_BATCH, "backend": backend_for(code, spec, dev),
         "fixed10_mbps": mbit / f_sec,
         "kernel_et_mbps": mbit / e_sec,
@@ -175,22 +218,85 @@ def study_one(ci: int, name: str, batch: int, snr: float, algo: str, k1: int,
     return rec
 
 
+def conv_only(out: str, dev, card) -> list[dict]:
+    """The convergence fractions over ``CONV_CONFIGS`` x ``ALGOS`` on
+    ``dev``, one batch a point (seeded by its index), written to ``out``."""
+    recs = []
+    i = 0
+    for name, batch, snrs in CONV_CONFIGS:
+        code = load_code(name)
+        for algo in ALGOS:
+            mc = "pre" if algo == "OMS" else "post"
+            for snr in snrs:
+                llr = awgn_batches(code, batch, 1, dev, snr, seed0=i)[0]
+                i += 1
+                rec = {"code": name, "algo": algo, "snr_db": snr,
+                       "batch": batch,
+                       "frac_converged": convergence_stats(code, algo, mc,
+                                                           llr, dev),
+                       "device": card or "cpu"}
+                print(json.dumps(rec), flush=True)
+                recs.append(rec)
+    lines = [
+        "# Early-termination convergence statistics",
+        "",
+        "Written by `python -m ldpcgputegra_tpu_torch.bench.et_study "
+        f"--conv-only` on {card or 'the CPU (plain version)'}, "
+        f"{time.strftime('%Y-%m-%d')}.  The fraction of frames whose "
+        "syndrome clears within k layered iterations, one `AwgnChannel` "
+        "batch a point, decoded with ET on: a converged frame keeps its "
+        "first-convergence bits, which makes the fraction monotone in k.  "
+        "The decoders are bit-exact across backends, so the fractions do "
+        "not depend on the device; they bound what ET can gain (mean "
+        "iterations >= sum_k k P(converged at k)), and a kernel's CTA stops "
+        "only once every frame of its tile has converged.",
+        "",
+        "| code | algo | SNR (dB) | batch | "
+        + " | ".join(f"P(<={k})" for k in CONV_KS) + " |",
+        "|---|---|---|---|" + "---|" * len(CONV_KS),
+    ]
+    for r in recs:
+        c = r["frac_converged"]
+        lines.append(f"| {r['code']} | {r['algo']} | {r['snr_db']} "
+                     f"| {r['batch']} | "
+                     + " | ".join(f"{c[k]:.4f}" for k in CONV_KS) + " |")
+    lines += ["", "Raw records:", "", "```json"]
+    lines += [json.dumps(r) for r in recs] + ["```", ""]
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as f:
+        f.write("\n".join(lines))
+    print(f"[et_study] wrote {out}", flush=True)
+    return recs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=None,
                     help="substring filter on 'code@snr/algo/kK'")
-    ap.add_argument("--out", default=OUT)
+    ap.add_argument("--out", default=None,
+                    help=f"default {OUT}, with --conv-only {CONV_OUT}")
     ap.add_argument("--trace", action="store_true")
+    ap.add_argument("--conv-only", action="store_true",
+                    help="only the convergence fractions")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="cpu only with --conv-only")
     args = ap.parse_args(argv)
+    if args.device == "cpu":
+        if not args.conv_only:
+            ap.error("--device cpu needs --conv-only: the rates time the card")
+        conv_only(args.out or CONV_OUT, torch.device("cpu"), None)
+        return 0
     if not torch.cuda.is_available():
         print("et_study: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_name(dev)
     print(f"[et_study] {smi}", flush=True)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    if args.conv_only:
+        conv_only(args.out or CONV_OUT, dev, smi)
+        return 0
+    out = args.out or OUT
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     for ci, (name, batch, snr, algo, k1) in enumerate(CONFIGS):
         if args.only and args.only not in f"{name}@{snr}/{algo}/k{k1}":
             continue
@@ -198,7 +304,7 @@ def main(argv=None) -> int:
                "device": smi}
         line = json.dumps(rec)
         print(line, flush=True)
-        with open(args.out, "a") as f:
+        with open(out, "a") as f:
             f.write(line + "\n")
     return 0
 

@@ -24,7 +24,7 @@ from typing import Callable, Sequence
 import torch
 
 __all__ = ["measure_call", "measure_host_call", "device_time_by_kernel",
-           "throughput_report"]
+           "throughput_report", "awgn_batches"]
 
 
 def _cuda_inputs(inputs, who: str) -> torch.device:
@@ -131,3 +131,16 @@ def throughput_report(
         "coded_mbps": coded_bits / seconds_per_call / 1e6,
         "coded_gbps": coded_bits / seconds_per_call / 1e9,
     }
+
+
+def awgn_batches(code, batch: int, n: int, device, snr: float,
+                 seed0: int) -> list[torch.Tensor]:
+    """``n`` distinct int8 batches of the all-zero codeword from
+    ``AwgnChannel`` at Eb/N0 ``snr``, batch i from the generator seeded
+    ``seed0 + i``: the inputs the timing tools decode."""
+    from ..channel.awgn import AwgnChannel
+
+    chan = AwgnChannel(code.N, code.K, device=device)
+    chan.configure(snr)
+    return [chan.generate_zero_int8(chan.generator(seed0 + i), batch)
+            for i in range(n)]

@@ -112,7 +112,9 @@ def forced_gather(variant: gather.Variant):
         gather.pick_tile = picked
 
 
-def _label(v) -> str:
+def variant_label(v) -> str:
+    """A variant as the tables print it: (placement/)tile/k, or the QC
+    kernel's tile."""
     if isinstance(v, streamed.Variant):
         return f"{v.placement}/{v.tile}/k{v.k}"
     if isinstance(v, gather.Variant):
@@ -159,12 +161,13 @@ def check(kernel: str, dev, log=print) -> int:
                 kb, ki = dec(llr)
             torch.cuda.synchronize()
             ok = torch.equal(kb, pb) and int(ki) == int(pi)
-            log(f"[check] {kernel} {code.name} B={B} {_label(v)}: "
+            log(f"[check] {kernel} {code.name} B={B} {variant_label(v)}: "
                 f"{'bit-exact' if ok else 'DIFFERS'} iters {int(ki)} "
                 f"(plain {int(pi)})")
             if not ok:
-                raise AssertionError(f"{kernel} {_label(v)} disagrees with "
-                                     f"the plain version on {code.name}")
+                raise AssertionError(
+                    f"{kernel} {variant_label(v)} disagrees with the plain "
+                    f"version on {code.name}")
     return 0
 
 
@@ -199,7 +202,7 @@ def main(argv=None) -> int:
                 with force(v):
                     t = measure_call(dec, inputs, k_small=2, k_large=6,
                                      repeats=2)
-                row.append(f"{_label(v)}{'*' if v == pick else ''}: "
+                row.append(f"{variant_label(v)}{'*' if v == pick else ''}: "
                            f"{t * 1e3:.4f}")
             print(f"[tiles] {kernel} {code.name} B={B} OMS {args.iters} ET "
                   "off, ms by variant (* the pick): " + ", ".join(row)
