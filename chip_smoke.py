@@ -56,7 +56,12 @@ hw_validate.py --quick`` (K1 against K2 at 2304x1152 B=8192 and 1944x972
 B=1024, the gather kernel against the plain version at 4000x2000, the
 first tail code), ``bench/et_skip_diag.py --quick`` (576x288),
 ``bench/vectors_check.py`` and ``bench/encoder_matrix_check.py``, with the
-decode kernels' launches in them.
+decode kernels' launches in them; (phase 26) the system's two root entry
+points: ``python -m ldpcgputegra_tpu_torch.bench.headline`` in a process
+of its own (one JSON line, its ms per call within 10% of K1's time at
+2304x1152 B=8192 in this run) and ``entry.py::entry()``'s flagship step
+(1944x972 B=128) bit for bit against the plain decoder, each with K1's
+launches.
 Imports nothing of JAX.  Exits non-zero, before printing any result, when
 there is no CUDA device or the package is not beside this script; any
 failing phase exits non-zero.  The last line of standard output is
@@ -1086,6 +1091,69 @@ def _tools(dev, out_dir):
     return launches
 
 
+def _headline(t_k1, smi):
+    """Phase 26 (a): ``python -m ldpcgputegra_tpu_torch.bench.headline`` in
+    a process of its own.  Its one stdout line must carry the record's keys
+    and metric, and its ms per call lie within 10% of phase 5's K1 time
+    at the same shape (``t_k1`` seconds); returns the line and the K1
+    launches its ``(PERF)`` line reports."""
+    from ldpcgputegra_tpu_torch.bench import headline
+
+    res = subprocess.run(
+        [sys.executable, "-m", "ldpcgputegra_tpu_torch.bench.headline"],
+        cwd=HERE, env={**os.environ, "PYTHONPATH": HERE},
+        capture_output=True, text=True, timeout=600,
+    )
+    assert res.returncode == 0, res.stderr
+    out = res.stdout.strip().splitlines()
+    assert len(out) == 1, res.stdout
+    rec = json.loads(out[0])
+    assert set(rec) == {"metric", "value", "unit", "vs_baseline", "device"}
+    assert rec["metric"] == headline.METRIC and rec["device"] == smi, rec
+    perf = [ln for ln in res.stderr.splitlines() if ln.startswith("(PERF)")]
+    assert len(perf) == 1, res.stderr
+    ms = float(perf[0].split(": ")[1].split(" ms/call")[0])
+    n_launch = int(perf[0].split("K1 launches ")[1].split()[0])
+    print(f"[headline] {out[0]}")
+    print(f"[headline] {perf[0]}")
+    print(f"[headline] {ms:.4f} ms/call against phase 5's K1 "
+          f"{t_k1 * 1e3:.4f} ms ({ms / (t_k1 * 1e3):.4f}x), K1 launches "
+          f"{n_launch} | {smi}")
+    assert abs(ms / (t_k1 * 1e3) - 1) <= 0.10, "the headline's harness is off"
+    assert n_launch > 0, "the headline did not run K1"
+    return out[0], n_launch
+
+
+def _entry(dev):
+    """Phase 26 (b): ``entry()`` on the card; its step's bits and
+    ``iters_used`` against the plain decoder's on the same tensor, bit for
+    bit; returns K1's launches in the step."""
+    import torch
+
+    from ldpcgputegra_tpu_torch import entry as E
+    from ldpcgputegra_tpu_torch.codes.registry import load_code
+    from ldpcgputegra_tpu_torch.kernels import layered as K
+    from ldpcgputegra_tpu_torch.ops.layered import make_layered_decoder
+
+    fn, args = E.entry()
+    torch.cuda.synchronize()
+    K.launches["layered_minsum"] = 0
+    bits, iters = fn(*args)
+    torch.cuda.synchronize()
+    n_launch = K.launches["layered_minsum"]
+    ref_bits, ref_iters = make_layered_decoder(load_code(E.CODE), E.SPEC,
+                                               dev)(*args)
+    (llr,) = args
+    print(f"[entry] {E.CODE} B={llr.shape[0]} on {llr.device}: iters_used "
+          f"{int(iters)} (plain {int(ref_iters)}), channel bit errors "
+          f"{int((llr > 0).sum())}, decoded {int(bits.sum())}, K1 launches "
+          f"{n_launch}")
+    assert torch.equal(bits, ref_bits) and int(iters) == int(ref_iters), (
+        "entry()'s step differs from the plain decoder")
+    assert n_launch > 0, "entry()'s step did not run K1"
+    return n_launch
+
+
 def main() -> int:
     import torch
 
@@ -1456,6 +1524,13 @@ def main() -> int:
     tools_launch = _tools(dev, out_dir)
     phase_done(25)
 
+    # 26. the system's two root entry points: the headline line in a
+    # process of its own, and entry()'s flagship step against the plain
+    # decoder
+    _, headline_launch = _headline(t_k, smi)
+    entry_launch = _entry(dev)
+    phase_done(26)
+
     # "route" is how the kernel is written (CUDA C++); "backend" is the
     # decoder backend that ``auto`` resolves to on the path it was driven
     # on; no one PyTorch call computes a layered min-sum decode, so its
@@ -1481,7 +1556,9 @@ def main() -> int:
                  "launches_scan": scan_launch,
                  "launches_stream": stream_launch,
                  "launches_multi": multi_launch,
-                 "launches_native": native_launch}
+                 "launches_native": native_launch,
+                 "launches_headline": headline_launch,
+                 "launches_entry": entry_launch}
                 if name == "layered_minsum" else
                 {"launches_coded": coded_launch[name]})
         mask["launches_ber"] = ber_launch[name]

@@ -5,9 +5,10 @@ benchmark-suite path) against their plain PyTorch version, the
 two-phase decoder against its CPU result, a CUDA graph's batches against
 eager ones, the encoders, flooding and ``DecodeStream`` on the card
 against the CPU, gloo ranks sharing the card (and one NCCL rank) against
-the kernels, and the native host decoder, the hybrid split and the
-node-major plain decoder against K1.  Every test here needs an NVIDIA GPU and skips without
-one.
+the kernels, the native host decoder, the hybrid split and the
+node-major plain decoder against K1, and the two root entry points
+(``entry()``'s step against the plain decoder, the headline line).
+Every test here needs an NVIDIA GPU and skips without one.
 
 On a machine with a card (and without jax, which ``tests/conftest.py``
 imports), run:
@@ -714,3 +715,37 @@ def test_ber_spot_on_the_card(dev):
     rec = ber_check.check_spot(("576x288", "OMS", 10, 2.5, 4096, 4), dev)
     assert rec["decoder_batch0"]["backend"] == "cuda"
     assert rec["stored_fe"] == 122 and rec["p"] >= ber_check.P_FAIL
+
+
+def test_entry_on_the_card_runs_k1_and_equals_plain(dev):
+    """``entry()``'s flagship step (1944x972 B=128) on the card launches K1
+    and gives the plain decoder's bits and ``iters_used`` on the same
+    tensor."""
+    from ldpcgputegra_tpu_torch import entry as E
+
+    fn, (llr,) = E.entry()
+    assert llr.is_cuda and tuple(llr.shape) == (E.BATCH, 1944)
+    K.launches["layered_minsum"] = 0
+    bits, iters = fn(llr)
+    torch.cuda.synchronize()
+    assert K.launches["layered_minsum"] > 0
+    pb, pi = make_layered_decoder(load_code(E.CODE), E.SPEC, dev)(llr)
+    assert torch.equal(bits, pb) and int(iters) == int(pi) == 10
+
+
+def test_headline_on_the_card(dev, capsys):
+    """``bench/headline.py``'s ``main()`` prints one JSON line with the
+    record's keys, through K1, with the card's name and power limit."""
+    import json
+
+    from ldpcgputegra_tpu_torch.bench import headline
+
+    assert headline.main([]) == 0
+    out, err = capsys.readouterr()
+    lines = out.strip().splitlines()
+    assert len(lines) == 1, out
+    rec = json.loads(lines[0])
+    assert set(rec) == {"metric", "value", "unit", "vs_baseline", "device"}
+    assert rec["metric"] == headline.METRIC and rec["value"] > 0
+    assert rec["vs_baseline"] == round(rec["value"] / 132.0, 2)
+    assert "backend cuda" in err and "K1 launches 0" not in err

@@ -28,9 +28,9 @@ for name in ("sim.cli", "decoder.twophase", "bench.et_study", "sim.scan",
              "bench.ber_tail", "bench.ber_topup", "bench.ber_check",
              "bench.air", "bench.hw_validate", "bench.et_skip_diag",
              "bench.kernel_et", "bench.profile_16200", "bench.vectors_check",
-             "bench.encoder_matrix_check"):
+             "bench.encoder_matrix_check", "bench.headline", "entry"):
     assert "ldpcgputegra_tpu_torch." + name in names, names
-assert len(names) >= 65, names
+assert len(names) >= 67, names
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib", "triton",
                                                "ldpcgputegra_tpu.")))
