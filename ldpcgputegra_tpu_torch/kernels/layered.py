@@ -49,6 +49,7 @@ from ..ops.layered import (
     make_layered_decoder,
     unsupported_reason,
 )
+from ..utils.profiling import span
 from . import _lib
 
 __all__ = ["make_cuda_decoder", "cuda_supported", "kernel_unsupported_reason",
@@ -184,6 +185,9 @@ def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec(),
     with no host synchronisation; ``iters_used`` is a 0-d int32 tensor on
     the card.  On a CPU tensor it runs the plain version, built on the
     first such call.
+    While a profiler runs, each call records the span ``ldpc.decode``
+    (its frames) and, on the card, ``ldpc.decode.pick`` around the
+    variant's pick (``utils/profiling.py``).
     """
     if spec.algo not in _lib.ALGO:
         raise ValueError(f"unknown algo {spec.algo!r}")
@@ -207,39 +211,44 @@ def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec(),
 
     def decode(llr: torch.Tensor):
         _lib.check_llr(llr, code.N)
-        if llr.device.type == "cpu":
-            bits, iters = plain()(llr)
-            if emit_mask:
-                return bits, iters, plain_ok()(bits)
-            return bits, iters
-        lib = _library()
-        dev = llr.device
-        if dev not in tables:
-            tables[dev] = (qc_tables(code, dev), _lib.sm_count(dev))
-        t, sms = tables[dev]
-        B = llr.shape[0]
-        tile = pick_tile(code, B, sms)
-        n_edges = int(t["cols"].numel())
-        bits = torch.empty((B, code.N), dtype=torch.uint8, device=dev)
-        msgs = torch.empty((-(-B // tile), code.Z * n_edges, tile),
-                           dtype=torch.int8, device=dev)
-        iters = torch.empty((), dtype=torch.int32, device=dev)
-        ok = torch.empty(B, dtype=torch.bool, device=dev) if emit_mask else None
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.layered_minsum_launch(
-                llr.data_ptr(), bits.data_ptr(), msgs.data_ptr(),
-                iters.data_ptr(), ok.data_ptr() if emit_mask else None,
-                t["row_ptr"].data_ptr(),
-                t["cols"].data_ptr(), t["shifts"].data_ptr(),
-                len(code.layers), n_edges, code.N, code.Z, B, tile, dmax, _lib.ALGO[spec.algo], int(spec.minclamp == "pre"),
-                spec.iters, int(spec.early_term), spec.offset, spec.nms_f,
-                spec.nms_f2, spec.sat_var, spec.sat_msg, stream,
-            )
-        if err != 0:
-            msg = lib.layered_minsum_error_string(err).decode()
-            raise RuntimeError(f"layered_minsum launch failed: {msg} ({err})")
-        launches["layered_minsum"] += 1
-        return (bits, iters, ok) if emit_mask else (bits, iters)
+        with span("decode", count=llr.shape[0]):
+            if llr.device.type == "cpu":
+                bits, iters = plain()(llr)
+                if emit_mask:
+                    return bits, iters, plain_ok()(bits)
+                return bits, iters
+            lib = _library()
+            dev = llr.device
+            if dev not in tables:
+                tables[dev] = (qc_tables(code, dev), _lib.sm_count(dev))
+            t, sms = tables[dev]
+            B = llr.shape[0]
+            with span("decode.pick", count=1):
+                tile = pick_tile(code, B, sms)
+            n_edges = int(t["cols"].numel())
+            bits = torch.empty((B, code.N), dtype=torch.uint8, device=dev)
+            msgs = torch.empty((-(-B // tile), code.Z * n_edges, tile),
+                               dtype=torch.int8, device=dev)
+            iters = torch.empty((), dtype=torch.int32, device=dev)
+            ok = (torch.empty(B, dtype=torch.bool, device=dev) if emit_mask
+                  else None)
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                err = lib.layered_minsum_launch(
+                    llr.data_ptr(), bits.data_ptr(), msgs.data_ptr(),
+                    iters.data_ptr(), ok.data_ptr() if emit_mask else None,
+                    t["row_ptr"].data_ptr(),
+                    t["cols"].data_ptr(), t["shifts"].data_ptr(),
+                    len(code.layers), n_edges, code.N, code.Z, B, tile, dmax,
+                    _lib.ALGO[spec.algo], int(spec.minclamp == "pre"),
+                    spec.iters, int(spec.early_term), spec.offset, spec.nms_f,
+                    spec.nms_f2, spec.sat_var, spec.sat_msg, stream,
+                )
+            if err != 0:
+                msg = lib.layered_minsum_error_string(err).decode()
+                raise RuntimeError(
+                    f"layered_minsum launch failed: {msg} ({err})")
+            launches["layered_minsum"] += 1
+            return (bits, iters, ok) if emit_mask else (bits, iters)
 
     return decode

@@ -37,6 +37,7 @@ import torch
 from ..codes.code import LdpcCode
 from ..codes.convert import edge_tables, layer_shapes
 from ..ops.layered import LayeredSpec, make_layered_decoder, unsupported_reason
+from ..utils.profiling import span
 from . import _lib
 
 __all__ = ["make_streamed_decoder", "kernel_unsupported_reason", "pick_tile",
@@ -184,6 +185,9 @@ def make_streamed_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
     stream, with no host synchronisation; ``iters_used`` is a 0-d int32
     tensor on the card.  On a CPU tensor it runs the plain version, built
     on the first such call.
+    While a profiler runs, each call records the span ``ldpc.decode``
+    (its frames) and, on the card, ``ldpc.decode.pick`` around the
+    variant's pick (``utils/profiling.py``).
     """
     if spec.algo not in _lib.ALGO:
         raise ValueError(f"unknown algo {spec.algo!r}")
@@ -201,41 +205,45 @@ def make_streamed_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
 
     def decode(llr: torch.Tensor):
         _lib.check_llr(llr, code.N)
-        if llr.device.type == "cpu":
-            return plain()(llr)
-        lib = _library()
-        dev = llr.device
-        if dev not in tables:
-            tables[dev] = (edge_tables(code, spec, dev), _lib.sm_count(dev))
-        t, sms = tables[dev]
-        B = llr.shape[0]
-        v = pick_tile(code, B, sms, spec.schedule, shapes)
-        n_tiles = -(-B // v.tile)
-        n_edges = int(t["vn"].numel())
-        bits = torch.empty((B, code.N), dtype=torch.uint8, device=dev)
-        app = (None if v.placement == "smem" else torch.empty(
-            (n_tiles, code.N, v.tile), dtype=torch.int8, device=dev))
-        msgs = torch.empty((n_tiles, n_edges, v.tile), dtype=torch.int8,
-                           device=dev)
-        iters = torch.empty((), dtype=torch.int32, device=dev)
-        perm = t["perm"].data_ptr() if t["perm"].numel() else None
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.streamed_minsum_launch(
-                llr.data_ptr(), bits.data_ptr(),
-                None if app is None else app.data_ptr(), msgs.data_ptr(),
-                iters.data_ptr(), t["row_ptr"].data_ptr(),
-                t["n_checks"].data_ptr(), t["deg"].data_ptr(),
-                t["vn"].data_ptr(), perm, int(t["deg"].numel()), n_edges,
-                code.N, B, v.tile, dmax, v.k, int(v.placement == "smem"),
-                _lib.ALGO[spec.algo], int(spec.minclamp == "pre"), spec.iters,
-                int(spec.early_term), spec.offset, spec.nms_f, spec.nms_f2,
-                spec.sat_var, spec.sat_msg, stream,
-            )
-        if err != 0:
-            msg = lib.streamed_minsum_error_string(err).decode()
-            raise RuntimeError(f"streamed_minsum launch failed: {msg} ({err})")
-        launches["streamed_minsum"] += 1
-        return bits, iters
+        with span("decode", count=llr.shape[0]):
+            if llr.device.type == "cpu":
+                return plain()(llr)
+            lib = _library()
+            dev = llr.device
+            if dev not in tables:
+                tables[dev] = (edge_tables(code, spec, dev),
+                               _lib.sm_count(dev))
+            t, sms = tables[dev]
+            B = llr.shape[0]
+            with span("decode.pick", count=1):
+                v = pick_tile(code, B, sms, spec.schedule, shapes)
+            n_tiles = -(-B // v.tile)
+            n_edges = int(t["vn"].numel())
+            bits = torch.empty((B, code.N), dtype=torch.uint8, device=dev)
+            app = (None if v.placement == "smem" else torch.empty(
+                (n_tiles, code.N, v.tile), dtype=torch.int8, device=dev))
+            msgs = torch.empty((n_tiles, n_edges, v.tile), dtype=torch.int8,
+                               device=dev)
+            iters = torch.empty((), dtype=torch.int32, device=dev)
+            perm = t["perm"].data_ptr() if t["perm"].numel() else None
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                err = lib.streamed_minsum_launch(
+                    llr.data_ptr(), bits.data_ptr(),
+                    None if app is None else app.data_ptr(), msgs.data_ptr(),
+                    iters.data_ptr(), t["row_ptr"].data_ptr(),
+                    t["n_checks"].data_ptr(), t["deg"].data_ptr(),
+                    t["vn"].data_ptr(), perm, int(t["deg"].numel()), n_edges,
+                    code.N, B, v.tile, dmax, v.k, int(v.placement == "smem"),
+                    _lib.ALGO[spec.algo], int(spec.minclamp == "pre"),
+                    spec.iters, int(spec.early_term), spec.offset, spec.nms_f,
+                    spec.nms_f2, spec.sat_var, spec.sat_msg, stream,
+                )
+            if err != 0:
+                msg = lib.streamed_minsum_error_string(err).decode()
+                raise RuntimeError(
+                    f"streamed_minsum launch failed: {msg} ({err})")
+            launches["streamed_minsum"] += 1
+            return bits, iters
 
     return decode

@@ -25,6 +25,9 @@ replay adds the graph's launches to them: the counters keep counting
 kernels that ran.
 
 On the CPU (when the caller asks for it) the S steps run as a plain loop.
+A dispatch's reseeding runs in the span ``ldpc.scan.prepare``
+(``utils/profiling.py``), which ends where the replay (on the CPU, the
+loop) starts.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ import time
 from typing import Callable, Sequence
 
 import torch
+
+from ..utils.profiling import span
 
 __all__ = ["ScanSteps"]
 
@@ -92,13 +97,14 @@ class ScanSteps:
     def __call__(self, seeds: Sequence[int]) -> torch.Tensor:
         if len(seeds) != self.S:
             raise ValueError(f"{len(seeds)} seeds for {self.S} steps")
-        if self.device.type != "cuda":
-            return torch.stack([self.step(g.manual_seed(s))
-                                for g, s in zip(self.gens, seeds)])
-        if self.graph is None:
+        graphed = self.device.type == "cuda"
+        if graphed and self.graph is None:
             self._capture()
-        for g, s in zip(self.gens, seeds):
-            g.manual_seed(s)
+        with span("scan.prepare", count=self.S):
+            for g, s in zip(self.gens, seeds):
+                g.manual_seed(s)
+        if not graphed:
+            return torch.stack([self.step(g) for g in self.gens])
         self.graph.replay()
         self.replays += 1
         for c, n in zip(_launch_counters(), self.per_replay):

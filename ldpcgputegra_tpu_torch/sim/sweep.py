@@ -26,7 +26,11 @@ The coded path dispatches one batch at a time, as JAX's does.
 ``LDPC_TPU_DEBUG_TIMING=1`` prints each window's host spans, as the JAX
 sweep does: the time spent dispatching, the time waiting on the fetch of
 the counts, and the batches fetched; ``on_window`` receives the same
-three numbers.
+three numbers.  While a profiler runs, the loop records them as the spans
+``ldpc.sweep.dispatch`` and ``ldpc.sweep.fetch`` (``utils/profiling.py``),
+from the same clock readings, and the rest of a window's host work, from
+``on_window``'s return to the next dispatch, as ``ldpc.sweep.account``.
+The spans of a group carry ``(point, first batch)`` as their request.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from ..codes.registry import load_code
 from ..decoder import default_device, make_decoder
 from ..ops.layered import LayeredSpec
 from ..quant import QuantSpec
+from ..utils.profiling import span
 from .analyzer import ErrorAnalyzer, count_errors_async
 from .scan import ScanSteps
 from .terminal import Terminal
@@ -341,47 +346,58 @@ def run_sweep(
                 return step(channel.generator(batch_seed(cfg.seed, pi, k)))[None]
 
             depth = max(1, cfg.pipeline_depth)
-            inflight: deque = deque()
+            inflight: deque = deque()  # (first batch, counts) of each group
             next_k = batch_idx
             stop = False
+            t_disp = time.perf_counter()
             while not stop or inflight:
-                t_disp = time.perf_counter()
-                while not stop and len(inflight) < depth:
-                    inflight.append(dispatch(next_k))
-                    next_k += grp
-                t_fetch = time.perf_counter()
+                with span("sweep.dispatch", request=(pi, next_k),
+                          start=t_disp) as sp:
+                    k0 = next_k
+                    while not stop and len(inflight) < depth:
+                        inflight.append((next_k, dispatch(next_k)))
+                        next_k += grp
+                    sp.count = next_k - k0
+                t_fetch = sp.end = time.perf_counter()
                 # fetch the oldest half of the window in ONE transfer
-                n_fetch = max(1, len(inflight) // 2) if not stop else len(inflight)
-                group = [inflight.popleft() for _ in range(n_fetch)]
-                stacked = torch.cat(group).cpu().tolist()
-                for be_i, fe_i in stacked:
-                    analyzer.add_counts(cfg.batch, int(be_i), int(fe_i))
-                    batch_idx += 1
-                t_end = time.perf_counter()
+                req = (pi, inflight[0][0])
+                with span("sweep.fetch", request=req, start=t_fetch) as sp:
+                    n_fetch = (max(1, len(inflight) // 2) if not stop
+                               else len(inflight))
+                    group = [inflight.popleft()[1] for _ in range(n_fetch)]
+                    stacked = torch.cat(group).cpu().tolist()
+                    for be_i, fe_i in stacked:
+                        analyzer.add_counts(cfg.batch, int(be_i), int(fe_i))
+                        batch_idx += 1
+                    sp.count = len(stacked)
+                t_end = sp.end = time.perf_counter()
                 if on_window is not None:
                     on_window(t_fetch - t_disp, t_end - t_fetch, len(stacked))
-                if debug_t:
-                    print(f"(DBG) window: dispatch "
-                          f"{1e3 * (t_fetch - t_disp):.1f} ms, fetch "
-                          f"{1e3 * (t_end - t_fetch):.1f} ms "
-                          f"({len(stacked)} batches)")
-                if progress:
-                    term.temp_report()
-                ckpt["partial"] = {
-                    "snr": key_snr,
-                    "frames": analyzer.frames,
-                    "be": analyzer.bit_errors,
-                    "fe": analyzer.frame_errors,
-                    "batches": batch_idx,
-                    "elapsed_s": term.elapsed(),
-                }
-                _save_ckpt(cfg.checkpoint, ckpt)
-                if (
-                    analyzer.fe_limit_achieved()
-                    or analyzer.frames >= cfg.max_frames
-                    or (cfg.timer_s is not None and term.elapsed() >= cfg.timer_s)
-                ):
-                    stop = True
+                with span("sweep.account", request=req) as sp:
+                    if debug_t:
+                        print(f"(DBG) window: dispatch "
+                              f"{1e3 * (t_fetch - t_disp):.1f} ms, fetch "
+                              f"{1e3 * (t_end - t_fetch):.1f} ms "
+                              f"({len(stacked)} batches)")
+                    if progress:
+                        term.temp_report()
+                    ckpt["partial"] = {
+                        "snr": key_snr,
+                        "frames": analyzer.frames,
+                        "be": analyzer.bit_errors,
+                        "fe": analyzer.frame_errors,
+                        "batches": batch_idx,
+                        "elapsed_s": term.elapsed(),
+                    }
+                    _save_ckpt(cfg.checkpoint, ckpt)
+                    if (
+                        analyzer.fe_limit_achieved()
+                        or analyzer.frames >= cfg.max_frames
+                        or (cfg.timer_s is not None
+                            and term.elapsed() >= cfg.timer_s)
+                    ):
+                        stop = True
+                t_disp = sp.end = time.perf_counter()
             rec = term.final_report()
             point = SnrPoint(
                 snr_db=snr,

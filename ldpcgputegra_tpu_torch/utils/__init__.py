@@ -2,7 +2,7 @@
 ``ldpcgputegra_tpu/utils/profiling.py`` and ``utils/debug.py``)."""
 
 from .debug import check_dataset, dump_dataset, load_dataset, print_frame
-from .profiling import timed, trace
+from .profiling import span, spans, trace
 
-__all__ = ["trace", "timed", "check_dataset", "dump_dataset",
+__all__ = ["trace", "span", "spans", "check_dataset", "dump_dataset",
            "load_dataset", "print_frame"]

@@ -18,7 +18,8 @@ from ldpcgputegra_tpu_torch.utils import (
     dump_dataset,
     load_dataset,
     print_frame,
-    timed,
+    span,
+    spans,
     trace,
 )
 
@@ -68,15 +69,19 @@ def test_alist_refuses_a_bad_degree(tmp_path):
         load_alist(path)
 
 
-def test_profiling_helpers(tmp_path, capfd):
-    with timed("block"):
-        torch.ones(8).sum()
-    assert "(PERF) block: " in capfd.readouterr().out
+def test_profiling_helpers(tmp_path):
     d = str(tmp_path / "trace")
+    before = len(spans())
     with trace(d) as where:
-        torch.ones(64).cumsum(0)
+        with span("helpers", count=64):
+            torch.ones(64).cumsum(0)
     assert where == d
-    assert any(f.endswith(".pt.trace.json") for f in os.listdir(d))
+    (name,) = [f for f in os.listdir(d) if f.endswith(".pt.trace.json")]
+    (rec,) = spans()[before:]
+    assert (rec.name, rec.count, rec.parent) == ("ldpc.helpers", 64, None)
+    assert 0 < rec.end - rec.start
+    with open(os.path.join(d, name)) as f:
+        assert '"ldpc.helpers"' in f.read()
 
 
 def test_debug_helpers(tmp_path, capfd):

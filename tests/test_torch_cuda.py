@@ -567,6 +567,51 @@ def test_graphed_sweep_counts_equal_eager(dev):
     assert all(p.frames == 9 * 256 for p in c)
 
 
+def test_spans_on_the_card(dev):
+    """Under the profiler a K2 call records its variant pick inside its
+    decode span, and a graph's capture (the decode spans run while it
+    records) succeeds: its replay equals the eager batches."""
+    from ldpcgputegra_tpu_torch.channel.awgn import AwgnChannel
+    from ldpcgputegra_tpu_torch.sim.scan import ScanSteps
+    from ldpcgputegra_tpu_torch.utils.profiling import spans
+
+    code = load_code("576x288")
+    dec = S.make_streamed_decoder(code, LayeredSpec(algo="OMS", iters=5,
+                                                    early_term=True))
+    chan = AwgnChannel(code.N, code.K, device=dev)
+    chan.configure(2.0)
+
+    def step(g):
+        bits, used = dec(chan.generate_zero_int8(g, 64))
+        return torch.cat([bits.view(-1).to(torch.int32), used.view(1)])
+
+    llr = torch.from_numpy(_llrs(code.N, 64, seed=9)).to(dev)
+    dec(llr)
+    torch.cuda.synchronize()
+    before = len(spans())
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]):
+        dec(llr)
+        scan = ScanSteps(step, 2, dev)
+        out = scan([3, 4])
+        torch.cuda.synchronize()
+    got = spans()[before:]
+    pick, call = got[:2]
+    assert (pick.name, pick.count, pick.parent) == ("ldpc.decode.pick", 1,
+                                                     call)
+    assert (call.name, call.count, call.parent) == ("ldpc.decode", 64, None)
+    assert call.start <= pick.start <= pick.end <= call.end
+    # the warm-up and the two captured steps, then the replay's reseeding
+    names = [r.name for r in got[2:]]
+    assert names == ["ldpc.decode.pick", "ldpc.decode"] * 3 + [
+        "ldpc.scan.prepare"]
+    assert scan.graph is not None and scan.replays == 1
+    for j, s in enumerate((3, 4)):
+        bits, used = dec(chan.generate_zero_int8(chan.generator(s), 64))
+        assert torch.equal(out[j, :-1].view(64, code.N).to(torch.uint8), bits)
+        assert int(out[j, -1]) == int(used)
+
+
 @pytest.mark.parametrize("name,kind", [("576x288", "gf2"),
                                        ("16200x7560", "staircase"),
                                        ("16200x10800", "table")])
