@@ -1,6 +1,8 @@
 """What the kernel wrappers share: building a ``csrc/`` source into a
-shared library at first use, checking a decoder's input, and the cost
-model by which the gather and streamed kernels pick a variant.
+shared library at first use, checking a decoder's input, the cost
+model by which the gather and streamed kernels pick a variant, and the
+lookup by which each decoder computes its pick once a batch size and
+card.
 
 A library is compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a``
 into a build directory (``ldpcgputegra_tpu_torch/_build/``, git-ignored),
@@ -22,6 +24,8 @@ import time
 from typing import Callable, Iterable, Sequence
 
 import torch
+
+from ..utils.profiling import span
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -78,6 +82,24 @@ def pick_by_rounds(variants: Iterable, B: int, sms: int,
         return waves * rounds, prefer(v)
 
     return min(variants, key=cost, default=None)
+
+
+def cached_pick(picks: dict, pick_tile: Callable, code, B: int, sms: int,
+                *args):
+    """``pick_tile(code, B, sms, *args)``, computed once a key ``(pick_tile,
+    B, sms)`` and kept in ``picks``, one decoder's dict (its code and
+    ``args`` fixed), for the calls after it.  The caller passes the
+    module's ``pick_tile`` as it reads at the call, so a pick forced by
+    replacing it (``bench/tiles.py``) is a key of its own, served only
+    while the replacement is in place.  Inside the span
+    ``ldpc.decode.pick``, whose count is 1 where the pick was computed and
+    0 where it was looked up."""
+    key = (pick_tile, B, sms)
+    with span("decode.pick", count=0) as sp:
+        if key not in picks:
+            sp.count = 1
+            picks[key] = pick_tile(code, B, sms, *args)
+        return picks[key]
 
 
 def sm_count(device) -> int:

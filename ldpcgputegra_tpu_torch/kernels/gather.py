@@ -189,7 +189,8 @@ def kernel_unsupported_reason(code: LdpcCode, spec: LayeredSpec):
 def make_gather_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
     """Build ``decode(llr[B, N] int8) -> (bits[B, N] uint8, iters_used)``
     over the layers of ``build_layers(code, spec.schedule)``, in the variant
-    ``pick_tile`` picks for each call's batch (once a batch size and card).
+    ``pick_tile`` picks for each call's batch (computed once a batch size
+    and card, ``_lib.cached_pick``).
 
     On a CUDA tensor the decoder launches the kernel on PyTorch's current
     stream, with no host synchronisation; ``iters_used`` is a 0-d int32
@@ -197,7 +198,8 @@ def make_gather_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
     on the first such call.
     While a profiler runs, each call records the span ``ldpc.decode``
     (its frames) and, on the card, ``ldpc.decode.pick`` around the
-    variant's pick (``utils/profiling.py``).
+    variant's pick, count 1 where it was computed and 0 where it was
+    looked up (``utils/profiling.py``).
     """
     if spec.algo not in _lib.ALGO:
         raise ValueError(f"unknown algo {spec.algo!r}")
@@ -208,8 +210,7 @@ def make_gather_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
     shapes = layer_shapes(code, spec.schedule)
     # the tables and the SM count, read on the first call per card
     tables: dict[torch.device, tuple[dict, int]] = {}
-    # the picks by (pick_tile, B, SMs): the module's pick_tile is part of
-    # the key, so a pick forced by replacing it (bench/tiles.py) holds
+    # the picks by (pick_tile, B, SMs) (_lib.cached_pick)
     picks: dict[tuple, Variant] = {}
 
     @functools.cache
@@ -228,12 +229,8 @@ def make_gather_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
                                _lib.sm_count(dev))
             t, sms = tables[dev]
             B = llr.shape[0]
-            key = (pick_tile, B, sms)
-            with span("decode.pick", count=0) as sp:
-                if key not in picks:
-                    sp.count = 1
-                    picks[key] = pick_tile(code, B, sms, spec.schedule, shapes)
-                v = picks[key]
+            v = _lib.cached_pick(picks, pick_tile, code, B, sms,
+                                 spec.schedule, shapes)
             n_edges = int(t["vn"].numel())
             bits = torch.empty((B, code.N), dtype=torch.uint8, device=dev)
             msgs = torch.empty((-(-B // v.tile), n_edges, v.tile),

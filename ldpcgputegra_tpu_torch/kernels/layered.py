@@ -177,7 +177,8 @@ def cuda_supported(code: LdpcCode, spec: LayeredSpec) -> bool:
 def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec(),
                       emit_mask: bool = False):
     """Build ``decode(llr[B, N] int8) -> (bits[B, N] uint8, iters_used)``,
-    ``pick_tile`` codewords per CTA; with ``emit_mask``, ``(bits,
+    ``pick_tile`` codewords per CTA for each call's batch (computed once a
+    batch size and card, ``_lib.cached_pick``); with ``emit_mask``, ``(bits,
     iters_used, ok[B] bool)``, ``ok`` true where the output satisfies every
     check (not with ``spec.early_term``, as in the JAX package).
 
@@ -187,7 +188,8 @@ def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec(),
     first such call.
     While a profiler runs, each call records the span ``ldpc.decode``
     (its frames) and, on the card, ``ldpc.decode.pick`` around the
-    variant's pick (``utils/profiling.py``).
+    tile's pick, count 1 where it was computed and 0 where it was looked
+    up (``utils/profiling.py``).
     """
     if spec.algo not in _lib.ALGO:
         raise ValueError(f"unknown algo {spec.algo!r}")
@@ -200,6 +202,8 @@ def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec(),
     dmax = _dmax(code)
     # the tables and the SM count, read on the first call per card
     tables: dict[torch.device, tuple[dict, int]] = {}
+    # the tiles by (pick_tile, B, SMs) (_lib.cached_pick)
+    picks: dict[tuple, int] = {}
 
     @functools.cache
     def plain():
@@ -223,8 +227,7 @@ def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec(),
                 tables[dev] = (qc_tables(code, dev), _lib.sm_count(dev))
             t, sms = tables[dev]
             B = llr.shape[0]
-            with span("decode.pick", count=1):
-                tile = pick_tile(code, B, sms)
+            tile = _lib.cached_pick(picks, pick_tile, code, B, sms)
             n_edges = int(t["cols"].numel())
             bits = torch.empty((B, code.N), dtype=torch.uint8, device=dev)
             msgs = torch.empty((-(-B // tile), code.Z * n_edges, tile),

@@ -177,7 +177,8 @@ def kernel_unsupported_reason(code: LdpcCode, spec: LayeredSpec):
 def make_streamed_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
     """Build ``decode(llr[B, N] int8) -> (bits[B, N] uint8, iters_used)``
     over the committed edges of ``build_layers(code, spec.schedule)``, in
-    the variant ``pick_tile`` picks; ``code`` may be a QC view
+    the variant ``pick_tile`` picks for each call's batch (computed once a
+    batch size and card, ``_lib.cached_pick``); ``code`` may be a QC view
     (``col_perm``, deficient circulants, sub-pass layers), whose callers
     keep the base code's column order.
 
@@ -187,7 +188,8 @@ def make_streamed_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
     on the first such call.
     While a profiler runs, each call records the span ``ldpc.decode``
     (its frames) and, on the card, ``ldpc.decode.pick`` around the
-    variant's pick (``utils/profiling.py``).
+    variant's pick, count 1 where it was computed and 0 where it was
+    looked up (``utils/profiling.py``).
     """
     if spec.algo not in _lib.ALGO:
         raise ValueError(f"unknown algo {spec.algo!r}")
@@ -198,6 +200,8 @@ def make_streamed_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
     shapes = layer_shapes(code, spec.schedule)
     # the tables and the SM count, read on the first call per card
     tables: dict[torch.device, tuple[dict, int]] = {}
+    # the picks by (pick_tile, B, SMs) (_lib.cached_pick)
+    picks: dict[tuple, Variant] = {}
 
     @functools.cache
     def plain():
@@ -215,8 +219,8 @@ def make_streamed_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
                                _lib.sm_count(dev))
             t, sms = tables[dev]
             B = llr.shape[0]
-            with span("decode.pick", count=1):
-                v = pick_tile(code, B, sms, spec.schedule, shapes)
+            v = _lib.cached_pick(picks, pick_tile, code, B, sms,
+                                 spec.schedule, shapes)
             n_tiles = -(-B // v.tile)
             n_edges = int(t["vn"].numel())
             bits = torch.empty((B, code.N), dtype=torch.uint8, device=dev)

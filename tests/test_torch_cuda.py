@@ -40,6 +40,7 @@ from ldpcgputegra_tpu_torch.decoder.twophase import (
     make_twophase_decoder,
     syndrome_fn,
 )
+from ldpcgputegra_tpu_torch.kernels import _lib
 from ldpcgputegra_tpu_torch.kernels import gather as G
 from ldpcgputegra_tpu_torch.kernels import layered as K
 from ldpcgputegra_tpu_torch.kernels import streamed as S
@@ -288,6 +289,80 @@ def test_gather_decoder_picks_per_call(dev):
         G.pick_tile = picked
     assert seen == [4096, 384]
     assert picked(code, 384, G.SMS_H100) != picked(code, 4096, G.SMS_H100)
+
+
+# (kernel module, its decoder, code, two batches whose picks differ, a
+# forcing of bench/tiles.py, a variant other than both picks)
+_PICK_CASES = {
+    "layered": (K, K.make_cuda_decoder, "576x288", (1024, 203),
+                tiles.forced_layered, 16),
+    "streamed": (S, S.make_streamed_decoder, "16200x7560", (512, 128),
+                 tiles.forced_streamed, S.Variant("device", 4, 2)),
+}
+
+
+@pytest.mark.parametrize("kernel", ["layered", "streamed"])
+def test_decoder_picks_once_per_batch_size(dev, kernel):
+    """K1 and K2 read the batch at each call and compute the pick once a
+    batch size: batches (B1, B2, B1, B2) compute two picks, which differ,
+    and every call is bit-exact against the plain decoder."""
+    mod, make, name, batches, _, _ = _PICK_CASES[kernel]
+    code = effective_code(load_code(name))
+    spec = LayeredSpec(iters=3)
+    dec = make(code, spec)
+    plain = make_layered_decoder(code, spec, dev)
+    seen = []
+    picked = mod.pick_tile
+    mod.pick_tile = lambda c, B, *a, **kw: seen.append(B) or picked(c, B, *a,
+                                                                     **kw)
+    try:
+        for B in batches * 2:
+            llr = torch.from_numpy(_llrs(code.N, B, seed=B)).to(dev)
+            kb, ki = dec(llr)
+            pb, pi = plain(llr)
+            assert torch.equal(kb, pb) and int(ki) == int(pi), B
+    finally:
+        mod.pick_tile = picked
+    assert seen == list(batches)
+    sms = _lib.sm_count(dev)
+    assert picked(code, batches[0], sms) != picked(code, batches[1], sms)
+
+
+@pytest.mark.parametrize("kernel", ["layered", "streamed"])
+def test_forced_variant_launches_after_a_cached_pick(dev, kernel):
+    """A variant forced by ``bench/tiles.py`` takes effect on a decoder
+    that has already kept its natural pick at that batch size, and the
+    natural pick comes back, looked up, once the forcing ends: each call
+    one launch, each bit-exact against the plain decoder, and under the
+    profiler the pick computed only under the forcing's new key."""
+    from ldpcgputegra_tpu_torch.utils.profiling import spans
+
+    mod, make, name, batches, force, other = _PICK_CASES[kernel]
+    code = effective_code(load_code(name))
+    B = batches[1]
+    assert other != mod.pick_tile(code, B, _lib.sm_count(dev))
+    spec = LayeredSpec(iters=3, early_term=True)
+    dec = make(code, spec)
+    llr = torch.from_numpy(_spread_llrs(code.N, B, seed=5)).to(dev)
+    pb, pi = make_layered_decoder(code, spec, dev)(llr)
+    counter = {"layered": "layered_minsum", "streamed": "streamed_minsum"}
+    launches = mod.launches[counter[kernel]]
+    dec(llr)  # the natural pick, kept
+    torch.cuda.synchronize()
+    before = len(spans())
+    act = torch.profiler.ProfilerActivity
+    outs = []
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]):
+        with force(other):
+            outs += [dec(llr), dec(llr)]
+        outs.append(dec(llr))
+        torch.cuda.synchronize()
+    for kb, ki in outs:
+        assert torch.equal(kb, pb) and int(ki) == int(pi)
+    assert mod.launches[counter[kernel]] == launches + 4
+    counts = [r.count for r in spans()[before:]
+              if r.name == "ldpc.decode.pick"]
+    assert counts == [1, 0, 0]
 
 
 def test_gather_kernel_counts_launches_and_checks_inputs(dev):
@@ -569,8 +644,10 @@ def test_graphed_sweep_counts_equal_eager(dev):
 
 def test_spans_on_the_card(dev):
     """Under the profiler a K2 call records its variant pick inside its
-    decode span, and a graph's capture (the decode spans run while it
-    records) succeeds: its replay equals the eager batches."""
+    decode span, count 1 at a batch size the decoder has not seen and 0
+    where it looks the pick up, and a graph's capture (the decode spans
+    run while it records) succeeds: its replay equals the eager
+    batches."""
     from ldpcgputegra_tpu_torch.channel.awgn import AwgnChannel
     from ldpcgputegra_tpu_torch.sim.scan import ScanSteps
     from ldpcgputegra_tpu_torch.utils.profiling import spans
@@ -591,20 +668,24 @@ def test_spans_on_the_card(dev):
     before = len(spans())
     act = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]):
-        dec(llr)
+        dec(llr[:32])  # a batch size not seen yet: the pick is computed
+        dec(llr)  # one seen before the profiler: it is looked up
         scan = ScanSteps(step, 2, dev)
         out = scan([3, 4])
         torch.cuda.synchronize()
     got = spans()[before:]
-    pick, call = got[:2]
-    assert (pick.name, pick.count, pick.parent) == ("ldpc.decode.pick", 1,
-                                                     call)
-    assert (call.name, call.count, call.parent) == ("ldpc.decode", 64, None)
-    assert call.start <= pick.start <= pick.end <= call.end
+    for (pick, call), (count, frames) in zip((got[:2], got[2:4]),
+                                             ((1, 32), (0, 64))):
+        assert (pick.name, pick.count, pick.parent) == ("ldpc.decode.pick",
+                                                         count, call)
+        assert (call.name, call.count, call.parent) == ("ldpc.decode",
+                                                         frames, None)
+        assert call.start <= pick.start <= pick.end <= call.end
     # the warm-up and the two captured steps, then the replay's reseeding
-    names = [r.name for r in got[2:]]
+    names = [r.name for r in got[4:]]
     assert names == ["ldpc.decode.pick", "ldpc.decode"] * 3 + [
         "ldpc.scan.prepare"]
+    assert [r.count for r in got[4:10:2]] == [0, 0, 0]
     assert scan.graph is not None and scan.replays == 1
     for j, s in enumerate((3, 4)):
         bits, used = dec(chan.generate_zero_int8(chan.generator(s), 64))
