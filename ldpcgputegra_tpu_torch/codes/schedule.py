@@ -26,6 +26,7 @@ from typing import Sequence
 
 import numpy as np
 
+from ..utils.profiling import span
 from .code import Layer, LdpcCode
 
 __all__ = ["color_layers", "build_layers"]
@@ -45,13 +46,17 @@ def color_layers(code: LdpcCode) -> list[Layer]:
 
     The pass is pure Python, and routing, the fit check, the kernel's
     tables and the plain decoder all ask for the same layers: they are
-    computed once per code object, while it lives.
+    computed once per code object, while it lives.  The computation (not
+    the lookup) is the span ``ldpc.schedule.color``, counting the layers
+    made.
     """
     key = id(code)
     hit = _colored.get(key)
     if hit is not None and hit[0]() is code:
         return hit[1]
-    layers = _color(code)
+    with span("schedule.color") as sp:
+        layers = _color(code)
+        sp.count = len(layers)
     _colored[key] = (weakref.ref(code, lambda _: _colored.pop(key, None)),
                      layers)
     return layers
