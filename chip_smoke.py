@@ -6,7 +6,8 @@
 Builds the hand-written CUDA kernels from ``ldpcgputegra_tpu_torch/csrc/``
 (one nvcc per source, all at once): the QC kernel (``layered_minsum``), the
 gather kernel for non-QC codes (``gather_minsum``), the streamed kernel
-for the DVB-S2 QC views and synthqc (``streamed_minsum``), the probes of
+for the DVB-S2 QC views and synthqc (``streamed_minsum``, one library per
+(algorithm, minclamp) pair), the probes of
 the card's ceilings (``probes.cu``: ``probe_mix``, ``probe_peak``,
 ``probe_copy``) and the roll probe (``roll_probe.cu``: ``probe_roll``).
 Prints what the decode kernels compile to (SASS instructions per edge
@@ -1197,11 +1198,13 @@ def main() -> int:
     print(f"[device] nvidia-smi: {smi}")
     phase_done(1)
 
-    # 2. build: one nvcc per source, all started together
-    with ThreadPoolExecutor(5) as pool:
+    # 2. build: one nvcc per source (the streamed kernel's, one per
+    # (algorithm, minclamp) pair), all started together
+    with ThreadPoolExecutor(4 + len(S.PAIRS)) as pool:
         builds = {"layered_minsum": pool.submit(K.build),
                   "gather_minsum": pool.submit(G.build),
-                  "streamed_minsum": pool.submit(S.build),
+                  **{f"streamed_minsum {a}/{m}": pool.submit(S.build, a, m)
+                     for a, m in S.PAIRS},
                   "probes": pool.submit(V.build),
                   "roll_probe": pool.submit(P.build)}
         builds = {name: f.result() for name, f in builds.items()}

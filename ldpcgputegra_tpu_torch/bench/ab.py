@@ -41,7 +41,7 @@ SHAPES = [("layered", "2304x1152", 8192), ("layered", "1944x972", 1024),
           ("gather", "4000x2000", 384), ("gather", "8000x4000", 2048),
           ("gather", "20000x10000", 1024), ("gather", "2048x384", 8192),
           ("gather", "1024x518", 8192), ("gather", "1200x600", 8192),
-          ("streamed", "64800x32400", 512),
+          ("streamed", "64800x32400", 512), ("streamed", "64800x32400", 128),
           ("streamed", "64800x6480-dvbs2", 256),
           ("streamed", "16200x7560", 1024),
           ("streamed", "64800x7200-dvbs2", 256),

@@ -11,11 +11,11 @@ codewords a thread packs; the code's degree where the edges run in loops
 nested in it, as in a QC kernel with runtime edge loops), plus a nested
 edge loop's body over its int8 accesses, is the count per edge update; the
 second count keeps those on the integer-ALU pipe (``vpu_probe.alu_pipe``), the unit of the
-probes' ceilings.  A static count: in the QC and streamed kernels the
+probes' ceilings.  A static count: in the QC kernel the
 check-node arithmetic of all four algorithms and both minclamp placements
-sits in the loop (the gather kernel builds one pair each, and its
-``gather_symbol`` names the pair), and an unrolled slot above the code's
-degree is skipped at run time.  ``--root`` reads
+sits in the loop (the gather and streamed kernels build one pair each, and
+``gather_symbol`` and ``streamed_symbol`` name the pair), and an unrolled
+slot above the code's degree is skipped at run time.  ``--root`` reads
 another checkout's built libraries (``bench/ab.py`` builds them) beside
 this one's.  Needs ``cuobjdump`` (the CUDA toolkit).
 """
@@ -149,24 +149,26 @@ def per_edge(path: str, symbol: str, edges: float) -> tuple[float, float]:
     return n_all, n_alu
 
 
-def _libs(root: str) -> dict[str, str]:
-    """Kernel name -> the newest built library of it under ``root``."""
+def _libs(root: str) -> dict[str, list[str]]:
+    """Kernel name -> its built libraries under ``root``, the newest
+    first (the streamed kernel has one for each (algorithm, minclamp)
+    pair built)."""
     out = {}
     for name in ("layered_minsum", "streamed_minsum", "gather_minsum"):
         paths = glob.glob(os.path.join(root, "ldpcgputegra_tpu_torch",
                                        "_build", f"{name}-*.so"))
         if paths:
-            out[name] = max(paths, key=os.path.getmtime)
+            out[name] = sorted(paths, key=os.path.getmtime, reverse=True)
     return out
 
 
 # (kernel, mangled-name fragment, edges one pass of the check loop's own
 # instructions updates, what it is): the variants the picks take on the
-# main paths (2304x1152 B=8192 and 1944x972 B=1024; 64800x32400 B=512,
-# 64800x6480-dvbs2 B=256, 16200x7560 B=1024 and synthqc B=256; the gather
-# kernel's below), and the builds of an earlier design where another
-# checkout is read (one QC kernel with runtime edge loops, a streamed kernel
-# templated on the tile and DMAX only, a gather kernel with the algorithm
+# main paths (2304x1152 B=8192 and 1944x972 B=1024; the streamed and
+# gather kernels' below), and the builds of an earlier design where another
+# checkout is read (one QC kernel with runtime edge loops, streamed kernels
+# templated on the tile and DMAX only or on the placement and lanes with
+# the algorithm chosen at run time, a gather kernel with the algorithm
 # chosen at run time)
 VARIANTS = [
     ("layered_minsum", "kernelILi16ELi4ELi8EE", 32, "tile 16, 4 a thread"),
@@ -174,14 +176,25 @@ VARIANTS = [
     # runtime edge loops: the degree, 7296 / 1152 at 2304x1152
     ("layered_minsum", "layered_minsum_kernelEN", 7296 / 1152,
      "tile 32, runtime edge loops"),
+    # OMS with minclamp 'pre' (ALGO 1, PRE true): the picks at 64800x32400
+    # B=128-512, 64800x6480-dvbs2 B=256, 16200x7560 B=1024 and synthqc
+    # B=256
+    ("streamed_minsum", "kernelILi1ELi8ELi1ELb1ELi1ELb1EE", 8,
+     "shared-memory APP, tile 1, 1 lane a check, DMAX 8, OMS pre"),
+    ("streamed_minsum", "kernelILi1ELi32ELi4ELb1ELi1ELb1EE", 8,
+     "shared-memory APP, tile 1, 4 lanes a check, DMAX 32, OMS pre"),
+    ("streamed_minsum", "kernelILi2ELi16ELi2ELb1ELi1ELb1EE", 8,
+     "shared-memory APP, tile 2, 2 lanes a check, DMAX 16, OMS pre"),
+    ("streamed_minsum", "kernelILi1ELi8ELi1ELb0ELi1ELb1EE", 8,
+     "device-memory APP, tile 1, DMAX 8, OMS pre"),
     ("streamed_minsum", "kernelILi1ELi8ELi1ELb1EE", 8,
-     "shared-memory APP, tile 1, 1 lane a check, DMAX 8"),
+     "shared-memory APP, tile 1, 1 lane a check, DMAX 8, runtime algorithm"),
     ("streamed_minsum", "kernelILi1ELi32ELi4ELb1EE", 8,
-     "shared-memory APP, tile 1, 4 lanes a check, DMAX 32"),
+     "shared-memory APP, tile 1, 4 lanes a check, DMAX 32, runtime algorithm"),
     ("streamed_minsum", "kernelILi2ELi16ELi2ELb1EE", 8,
-     "shared-memory APP, tile 2, 2 lanes a check, DMAX 16"),
+     "shared-memory APP, tile 2, 2 lanes a check, DMAX 16, runtime algorithm"),
     ("streamed_minsum", "kernelILi1ELi8ELi1ELb0EE", 8,
-     "device-memory APP, tile 1, DMAX 8"),
+     "device-memory APP, tile 1, DMAX 8, runtime algorithm"),
     ("streamed_minsum", "kernelILi2ELi8EEEv", 8,
      "device-memory APP, tile 2, DMAX 8, one lane a check"),
     ("streamed_minsum", "kernelILi2ELi32EEEv", 32,
@@ -223,26 +236,32 @@ def gather_symbol(code, v, algo: str = "OMS",
             dmax // v.k * gather.W)
 
 
-def streamed_symbol(code, v) -> tuple[str, int]:
-    """The same for the streamed kernel's variant ``v``."""
+def streamed_symbol(code, v, algo: str = "OMS",
+                    minclamp: str = "pre") -> tuple[str, int]:
+    """The same for the streamed kernel's variant ``v``, built for
+    ``algo`` and ``minclamp``."""
     from ..kernels import streamed
 
     dmax = streamed._dmax(code)
     smem = int(v.placement == "smem")
-    return f"kernelILi{v.tile}ELi{dmax}ELi{v.k}ELb{smem}EE", dmax // v.k
+    return (f"kernelILi{v.tile}ELi{dmax}ELi{v.k}ELb{smem}"
+            f"ELi{_lib.ALGO[algo]}ELb{int(minclamp == 'pre')}EE", dmax // v.k)
 
 
 def report(root: str, log=print) -> dict:
     """Per edge update, registers, stack and local memory of each variant
     in ``VARIANTS`` found in the libraries built under ``root``."""
-    out = {}
-    for kernel, path in _libs(root).items():
-        res = resources(path)
+    out, res = {}, {}
+    for kernel, paths in _libs(root).items():
         for k, symbol, edges, what in VARIANTS:
-            if k != kernel or _function(path, symbol) is None:
+            path = next((p for p in paths if _function(p, symbol) is not None),
+                        None) if k == kernel else None
+            if path is None:
                 continue
+            if path not in res:
+                res[path] = resources(path)
             n_all, n_alu = per_edge(path, symbol, edges)
-            r = next((v for f, v in res.items() if symbol in f), {})
+            r = next((v for f, v in res[path].items() if symbol in f), {})
             out[(kernel, what)] = (n_all, n_alu, r)
             log(f"[sass] {kernel} {what}: {n_all:.2f} SASS instructions an "
                 f"edge update, {n_alu:.2f} on the integer-ALU pipe; "

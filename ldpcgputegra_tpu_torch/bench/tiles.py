@@ -39,7 +39,8 @@ from .harness import measure_call
 
 LAYERED_SHAPES = [("2304x1152", 1024), ("2304x1152", 8192),
                   ("1944x972", 1024), ("1944x972", 8192)]
-SHAPES = [("64800x32400", 512), ("64800x32400", 2048), ("16200x7560", 1024),
+SHAPES = [("64800x32400", 512), ("64800x32400", 128), ("64800x32400", 2048),
+          ("16200x7560", 1024),
           ("64800x6480-dvbs2", 256), ("64800x6480-dvbs2", 1024),
           ("synthqc-256x128x6-z1024", 256)]
 # the gather kernel's non-QC codes at the suite's batches, and at smaller

@@ -70,7 +70,8 @@ __device__ __forceinline__ int cn_msg(int c, int parity, int min1, int f1,
   return s.pre ? clampi(m, s.sat_msg) : m;
 }
 
-// Compile-time forms of cn_abs, cn_f and cn_msg (gather_minsum.cu): the
+// Compile-time forms of cn_abs, cn_f and cn_msg (gather_minsum.cu,
+// streamed_minsum.cu; the run-time ones above serve layered_minsum.cu): the
 // algorithm and the minclamp placement are template parameters, so a kernel
 // built for one pair carries that pair's arithmetic alone, with no per-edge
 // select; the constants (offset, nms_f, nms_f2, sat_var, sat_msg) stay
@@ -113,6 +114,17 @@ __device__ __forceinline__ int cn_msg(int c, bool parity, int min1, int f1,
                                       int f2, const CnSpec& s) {
   const int mag = (cn_abs<ALGO, PRE>(c, s) == min1) ? f1 : f2;
   return (parity != (c > 0)) ? mag : -mag;
+}
+
+// The same from the edge's magnitude a = cn_abs<ALGO, PRE>(c), computed
+// once for the two-min, and a word whose sign bit is parity != (c > 0)
+// (streamed_minsum.cu keeps the parity as the sign bit of the XOR of the
+// negated contributions, so the word is that XOR with -c).
+template <int ALGO, bool PRE>
+__device__ __forceinline__ int cn_msg(int a, int sign, int min1, int f1,
+                                      int f2) {
+  const int mag = (a == min1) ? f1 : f2;
+  return sign < 0 ? mag : -mag;
 }
 
 }  // namespace minsum

@@ -14,12 +14,16 @@
 // through ctypes (ldpcgputegra_tpu_torch/kernels/streamed.py), on PyTorch's
 // current stream.
 //
-// What bounds it on this card: the latency of each check lane's accesses,
-// not its 21 integer operations an edge update.  A CTA walks a layer's
-// checks on its check lanes, one round after another, a __syncthreads()
-// ends every layer, and a round waits for its loads.  The first port kept
-// the APP in device memory for every code, so a round waited for two
-// dependent device-memory trips (the VN ids and messages, then the APP
+// What bounds it on this card: about half the instructions a round issues
+// and half the latency of its rounds.  A CTA walks a layer's checks on its
+// check lanes, one round after another, a __syncthreads() ends every
+// layer, and a round waits for its loads.  At 64800x32400 a one-CTA wave
+// (B = 128) takes 1.19-1.28 ms and two CTAs an SM over two waves (B = 512)
+// 3.72-3.73 ms, so a second CTA on an SM adds about 0.6 ms of issue to a
+// wave and the other ~0.6 ms is the rounds' latency (PERF.md §6; before
+// the compile-time pair, 0.95 and 0.98 ms of a 1.935-ms wave).  The first
+// port kept the APP in device memory for every code, so a round waited for
+// two dependent device-memory trips (the VN ids and messages, then the APP
 // bytes at those ids), and on 64800x6480-dvbs2 (about 90 committed checks
 // of degree 30 a layer) a third of the lanes worked, each walking 30 edges.
 // The design:
@@ -45,6 +49,24 @@
 //  * The contributions are unrolled to DMAX (8, 16 or 32, a template
 //    parameter, the smallest that holds the code's degrees), so they stay
 //    in registers.
+//  * The algorithm and the minclamp placement are template parameters too
+//    (the compile-time forms of minsum_common.cuh), and a library is built
+//    for one pair (STREAMED_ALGO, STREAMED_PRE): a round carries that
+//    pair's check-node arithmetic alone.  Each edge's magnitude is computed
+//    once, for the two-min and its message, and the parity is the sign bit
+//    of the XOR of the negated contributions, so each message's sign is
+//    one XOR with that word.
+//  * Only the VN id and message accesses are conditional.  An edge past
+//    the layer's degree, or of a lane without a live check, reads as a
+//    pinned edge (VN id -1), which moves neither the two-min nor the
+//    parity; in shared memory a pinned edge's APP byte lies in a pad
+//    before the APP.  Per-edge branches around the arithmetic cost more
+//    instructions than the one dummy edge of a degree-7 check at DMAX 8.
+//  * The APP's shared-memory address and the CTA's message base are kept
+//    in registers (opaque to the compiler, which otherwise rebuilt them at
+//    every access, four to six instructions each).
+// 77.38 SASS instructions an edge update (57.50 on the integer-ALU pipe)
+// became 43.38 (31.25) in the build 64800x32400 takes (bench/sass.py).
 // The wrapper picks (placement, tile, K) from the code, the batch and the
 // card's SM count (kernels/streamed.py::pick_tile), charging the shared
 // memory, registers and CTAs an SM of the variant it launches.
@@ -85,12 +107,23 @@
 
 #include "minsum_common.cuh"
 
+// The (algorithm, minclamp) pair of this build: kernels/streamed.py::build
+// compiles one library a pair, with -DSTREAMED_ALGO=<Algo> and
+// -DSTREAMED_PRE=<0|1>, at the pair's first use.
+#if !defined(STREAMED_ALGO) || !defined(STREAMED_PRE)
+#error "build one (algorithm, minclamp) pair: -DSTREAMED_ALGO=0-3 -DSTREAMED_PRE=0|1"
+#endif
+
 namespace {
 
 using namespace minsum;
 
 constexpr int NTHREADS = 512;  // threads per CTA (mirrored in kernels/streamed.py)
 constexpr int NO_MIN = 1 << 20;  // a min1 above every magnitude
+// Shared memory before the APP: a pinned edge (VN id -1) of codeword tx
+// reads and writes byte tx - TB of it, so that neither its load nor its
+// store needs a test (mirrored in kernels/streamed.py::smem_bytes)
+constexpr int APP_PAD = 16;
 
 struct Params {
   const int8_t* llr;   // [B, N] frame-major
@@ -110,23 +143,37 @@ struct Params {
 
 // mirrored in kernels/streamed.py::smem_bytes
 __host__ __device__ inline size_t app_bytes(int N, int tb) {
-  return (static_cast<size_t>(N) * tb + 15) & ~static_cast<size_t>(15);
+  return APP_PAD + ((static_cast<size_t>(N) * tb + 15) & ~static_cast<size_t>(15));
+}
+
+// The shared-memory APP by 32-bit shared-memory address: through a generic
+// pointer every access would carry the generic-to-shared conversion
+// (gather_minsum.cu found the shared window's base rebuilt per access).
+__device__ __forceinline__ int lds_s8(uint32_t a) {
+  int v;
+  asm volatile("ld.shared.s8 %0, [%1];" : "=r"(v) : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ void sts8(uint32_t a, int v) {
+  asm volatile("st.shared.b8 [%0], %1;" ::"r"(a), "r"(v) : "memory");
 }
 
 // two CTAs an SM where a lane's DMAX / K contributions allow it (64
 // registers a thread); kernels/streamed.py::ctas_per_sm counts on it
-template <int TB, int DMAX, int K, bool SMEM_APP>
+template <int TB, int DMAX, int K, bool SMEM_APP, int ALGO, bool PRE>
 __global__ void __launch_bounds__(NTHREADS, DMAX / K <= 8 ? 2 : 1)
     streamed_minsum_kernel(Params p) {
   constexpr int D = DMAX / K;             // edges a lane holds
   constexpr int GW = 32 / (TB * K);       // checks a warp walks at once
   constexpr int TY = NTHREADS / (TB * K); // checks a CTA walks at once
   static_assert(TB * K <= 32, "a check's lanes and codewords span one warp");
+  static_assert(!SMEM_APP || TB <= APP_PAD, "a pinned edge's byte in the pad");
   // warp-uniform rounds where the lanes of a check shuffle, and where the
   // APP is in shared memory (measured faster there, PERF.md); else a lane
   // walks its own checks, as at K = 1 with the APP in device memory
   constexpr bool UNIFORM = K > 1 || SMEM_APP;
-  extern __shared__ __align__(16) unsigned char smem[];  // [N][TB] if SMEM_APP
+  extern __shared__ __align__(16) unsigned char smem[];  // pad, [N][TB] if SMEM_APP
   __shared__ int s_unsat[TB];
 
   const int tid = threadIdx.x, lane = tid & 31;
@@ -140,12 +187,18 @@ __global__ void __launch_bounds__(NTHREADS, DMAX / K <= 8 ? 2 : 1)
   const CnSpec cn = p.cn;
   const int sv = cn.sat_var;
   // this CTA's APP and messages; offsets within them fit an int (checked
-  // at launch)
+  // at launch).  In shared memory the thread's column of the APP is also
+  // kept as a shared-memory address, whose pad holds the pinned edges.
   int8_t* app;
-  if constexpr (SMEM_APP) app = reinterpret_cast<int8_t*>(smem);
+  if constexpr (SMEM_APP) app = reinterpret_cast<int8_t*>(smem + APP_PAD);
   else app = p.app + static_cast<size_t>(blockIdx.x) * N * TB;
   int8_t* at = app + tx;
+  // (opaque, so that the compiler keeps it in a register: rebuilt from the
+  // shared window's base it costs four instructions an access)
+  uint32_t as = SMEM_APP ? static_cast<uint32_t>(__cvta_generic_to_shared(at)) : 0u;
+  asm("" : "+r"(as));
   int8_t* mt = p.msgs + static_cast<size_t>(blockIdx.x) * p.n_edges * TB + tx;
+  asm("" : "+l"(mt));  // kept, not rebuilt from the parameters at each access
 
   // frame-major LLRs -> node-major APP; consecutive threads read
   // consecutive view columns of one frame
@@ -164,7 +217,7 @@ __global__ void __launch_bounds__(NTHREADS, DMAX / K <= 8 ? 2 : 1)
       if (tid < TB) s_unsat[tid] = 0;  // visible after the first layer's barrier
     }
     iters_run = it + 1;
-    int unsat = 0;
+    uint32_t unsat = 0;  // bit 31: a check of this lane's was unsatisfied
     for (int l = 0; l < p.n_layers; ++l) {
       const int e0 = __ldg(p.row_ptr + l);
       const int G = __ldg(p.n_checks + l), deg = __ldg(p.deg + l);
@@ -181,29 +234,53 @@ __global__ void __launch_bounds__(NTHREADS, DMAX / K <= 8 ? 2 : 1)
         // warp until it lands, so loads mixed with their uses cost a
         // memory round trip per edge; here a check waits for two (one
         // where the APP is in shared memory).  A pinned edge (v < 0)
-        // reads VN 0 and its message slot and uses neither: its
-        // contribution is -sat_var.
-        int v[D], a[D], c[D];
+        // uses neither its APP byte nor its message: its contribution is
+        // -sat_var.  In shared memory it reads and writes its byte of the
+        // pad; in device memory it reads VN 0 and writes nothing.  An
+        // edge past the layer's degree, and every edge of a lane with no
+        // live check this round, reads as a pinned edge and writes no
+        // message: its magnitude is the largest and its sign not
+        // positive, so it moves neither the two-min nor the parity of a
+        // check of two edges or more (kernels/streamed.py refuses less).
+        // So only the VN id and message accesses are conditional; the
+        // branch around each edge's loads also keeps them ahead of the
+        // loop that uses them (without it the compiler moved each APP
+        // load up to its VN id's, and the round ran 2x slower, PERF.md).
+        int v[D], c[D], a[D];
+        uint32_t sa[D];  // SMEM_APP: the shared-memory address of the byte
+        // slot of edge q of this lane: s0 + q * sk
+        const int s0 = e0 + sub * G + g, sk = K * G;
 #pragma unroll
         for (int q = 0; q < D; ++q) {
-          const int j = q * K + sub;
-          if (live && j < deg) {
-            const int slot = e0 + j * G + g;
+          v[q] = -1;
+          c[q] = 0;
+          if (live && q * K + sub < deg) {
+            const int slot = s0 + q * sk;
             v[q] = __ldg(p.vn + slot);
-            c[q] = it ? mt[slot * TB] : 0;
+            if (it) c[q] = mt[slot * TB];
           }
         }
 #pragma unroll
-        for (int q = 0; q < D; ++q)
-          if (live && q * K + sub < deg) a[q] = at[max(v[q], 0) * TB];
-        int min1 = NO_MIN, min2 = sv + 1, parity = 0;
+        for (int q = 0; q < D; ++q) {
+          if constexpr (SMEM_APP) {
+            sa[q] = as + v[q] * TB;
+            a[q] = lds_s8(sa[q]);
+          } else {
+            a[q] = at[max(v[q], 0) * TB];
+          }
+        }
+        // contributions, their magnitudes (kept for the messages), the
+        // two-min, and the parity as the sign bit of pw: the XOR of the
+        // negated contributions, whose sign bits are c > 0
+        int min1 = NO_MIN, min2 = sv + 1;
+        uint32_t pw = 0;
 #pragma unroll
         for (int q = 0; q < D; ++q) {
-          if (live && q * K + sub < deg) {
-            c[q] = v[q] < 0 ? -sv : clampi(a[q] - c[q], sv);
-            two_min(q, cn_abs(c[q], cn), min1, min2);
-            parity ^= (c[q] > 0);
-          }
+          const bool pinned = SMEM_APP ? sa[q] < as : v[q] < 0;
+          c[q] = pinned ? -sv : clampi(a[q] - c[q], sv);
+          a[q] = cn_abs<ALGO, PRE>(c[q], cn);
+          two_min(q, a[q], min1, min2);
+          pw ^= static_cast<uint32_t>(-c[q]);
         }
         if constexpr (K > 1) {
           // merge the check's K lanes: XOR across the lane bits of `sub`
@@ -211,28 +288,37 @@ __global__ void __launch_bounds__(NTHREADS, DMAX / K <= 8 ? 2 : 1)
           for (int o = 16; o >= 32 / K; o >>= 1) {
             const int m1 = __shfl_xor_sync(0xffffffffu, min1, o);
             const int m2 = __shfl_xor_sync(0xffffffffu, min2, o);
-            parity ^= __shfl_xor_sync(0xffffffffu, parity, o);
+            pw ^= __shfl_xor_sync(0xffffffffu, pw, o);
             min2 = min(min(min2, m2), max(min1, m1));
             min1 = min(min1, m1);
           }
         }
         int f1, f2;
-        cn_f(min1, min2, cn, f1, f2);
+        cn_f<ALGO, PRE>(min1, min2, cn, f1, f2);
+        // the stores compute their message addresses anew: an opaque copy
+        // of s0 keeps the loads' 64-bit addresses from living across the
+        // check (as in gather_minsum.cu, where they spilled)
+        int s1 = s0;
+        asm("" : "+r"(s1));
 #pragma unroll
         for (int q = 0; q < D; ++q) {
-          const int j = q * K + sub;
-          if (live && j < deg && v[q] >= 0) {
-            const int m = cn_msg(c[q], parity, min1, f1, f2, cn);
-            mt[(e0 + j * G + g) * TB] = static_cast<int8_t>(m);
-            at[v[q] * TB] = static_cast<int8_t>(clampi(c[q] + m, sv));
-          }
+          // the sign bit of pw ^ -c is parity != (c > 0)
+          const int m = cn_msg<ALGO, PRE>(
+              a[q], static_cast<int>(pw ^ static_cast<uint32_t>(-c[q])), min1,
+              f1, f2);
+          if (live && q * K + sub < deg)
+            mt[(s1 + q * sk) * TB] = static_cast<int8_t>(m);
+          const int na = clampi(c[q] + m, sv);
+          if constexpr (SMEM_APP) sts8(sa[q], na);
+          else if (v[q] >= 0) at[v[q] * TB] = static_cast<int8_t>(na);
         }
-        if (live) unsat |= parity;
+        // a lane with no live check has pw's sign bit clear
+        unsat |= pw;
       }
       __syncthreads();
     }
     if (p.early_term) {
-      if (active && unsat) s_unsat[tx] = 1;
+      if (active && (unsat >> 31)) s_unsat[tx] = 1;
       __syncthreads();
       if (active && s_unsat[tx] == 0) active = false;  // converged: freeze
     }
@@ -246,40 +332,64 @@ __global__ void __launch_bounds__(NTHREADS, DMAX / K <= 8 ? 2 : 1)
   }
 }
 
-template <int TB, int DMAX, int K, bool SMEM_APP>
+template <int TB, int DMAX, int K, bool SMEM_APP, int ALGO, bool PRE>
 cudaError_t launch(const Params& p, cudaStream_t st) {
   const size_t smem = SMEM_APP ? app_bytes(p.N, TB) : 0;
   cudaError_t err = cudaFuncSetAttribute(
-      streamed_minsum_kernel<TB, DMAX, K, SMEM_APP>,
+      streamed_minsum_kernel<TB, DMAX, K, SMEM_APP, ALGO, PRE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.B + TB - 1) / TB), block(NTHREADS);
-  streamed_minsum_kernel<TB, DMAX, K, SMEM_APP><<<grid, block, smem, st>>>(p);
+  streamed_minsum_kernel<TB, DMAX, K, SMEM_APP, ALGO, PRE>
+      <<<grid, block, smem, st>>>(p);
   return cudaGetLastError();
 }
 
 // the variants that kernels/streamed.py::VARIANTS lists: K > 1 only at
 // DMAX 16 and 32 and tiles up to 8; shared memory only at tiles up to 8
-template <int TB, bool SMEM_APP>
+template <int TB, bool SMEM_APP, int ALGO, bool PRE>
 cudaError_t launch_tile(const Params& p, int dmax, int k, cudaStream_t st) {
   if (k == 1) {
     switch (dmax) {
-      case 8: return launch<TB, 8, 1, SMEM_APP>(p, st);
-      case 16: return launch<TB, 16, 1, SMEM_APP>(p, st);
-      case 32: return launch<TB, 32, 1, SMEM_APP>(p, st);
+      case 8: return launch<TB, 8, 1, SMEM_APP, ALGO, PRE>(p, st);
+      case 16: return launch<TB, 16, 1, SMEM_APP, ALGO, PRE>(p, st);
+      case 32: return launch<TB, 32, 1, SMEM_APP, ALGO, PRE>(p, st);
       default: return cudaErrorInvalidValue;
     }
   }
   if constexpr (TB <= 8) {
     switch (dmax * 8 + k) {
-      case 16 * 8 + 2: return launch<TB, 16, 2, SMEM_APP>(p, st);
-      case 16 * 8 + 4: return launch<TB, 16, 4, SMEM_APP>(p, st);
-      case 32 * 8 + 2: return launch<TB, 32, 2, SMEM_APP>(p, st);
-      case 32 * 8 + 4: return launch<TB, 32, 4, SMEM_APP>(p, st);
+      case 16 * 8 + 2: return launch<TB, 16, 2, SMEM_APP, ALGO, PRE>(p, st);
+      case 16 * 8 + 4: return launch<TB, 16, 4, SMEM_APP, ALGO, PRE>(p, st);
+      case 32 * 8 + 2: return launch<TB, 32, 2, SMEM_APP, ALGO, PRE>(p, st);
+      case 32 * 8 + 4: return launch<TB, 32, 4, SMEM_APP, ALGO, PRE>(p, st);
       default: return cudaErrorInvalidValue;
     }
   }
   return cudaErrorInvalidValue;
+}
+
+template <int ALGO, bool PRE>
+cudaError_t launch_variant(const Params& p, int tile, int dmax, int k,
+                           int smem_app, cudaStream_t st) {
+  if (smem_app) {
+    switch (tile) {
+      case 8: return launch_tile<8, true, ALGO, PRE>(p, dmax, k, st);
+      case 4: return launch_tile<4, true, ALGO, PRE>(p, dmax, k, st);
+      case 2: return launch_tile<2, true, ALGO, PRE>(p, dmax, k, st);
+      case 1: return launch_tile<1, true, ALGO, PRE>(p, dmax, k, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  switch (tile) {
+    case 32: return launch_tile<32, false, ALGO, PRE>(p, dmax, k, st);
+    case 16: return launch_tile<16, false, ALGO, PRE>(p, dmax, k, st);
+    case 8: return launch_tile<8, false, ALGO, PRE>(p, dmax, k, st);
+    case 4: return launch_tile<4, false, ALGO, PRE>(p, dmax, k, st);
+    case 2: return launch_tile<2, false, ALGO, PRE>(p, dmax, k, st);
+    case 1: return launch_tile<1, false, ALGO, PRE>(p, dmax, k, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -290,8 +400,8 @@ extern "C" {
 // `k` lanes a check, contribution arrays of `dmax` (>= every layer's
 // degree) and the APP in shared memory (`smem_app` 1) or in `app`, scratch
 // of ceil(B / tile) * N * tile bytes; `msgs` is scratch of ceil(B / tile) *
-// n_edges * tile bytes; `perm` may be null.  Returns a cudaError_t (0 on
-// success).
+// n_edges * tile bytes; `perm` may be null.  `algo` and `minclamp_pre` must
+// be this library's pair.  Returns a cudaError_t (0 on success).
 int streamed_minsum_launch(const void* llr, void* bits, void* app, void* msgs,
                            void* iters_out, const void* row_ptr,
                            const void* n_checks, const void* deg,
@@ -311,28 +421,18 @@ int streamed_minsum_launch(const void* llr, void* bits, void* app, void* msgs,
   if (B <= 0 || N <= 0 || n_layers <= 0 || n_edges <= 0 ||
       n_edges * tile >= (1LL << 31) ||
       static_cast<long long>(N) * tile >= (1LL << 31) ||
+      sat_var <= 0 || sat_var > 127 || sat_msg <= 0 ||
       (!smem_app && app == nullptr))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(iters_out, 0, sizeof(int), st);
-  if (err != cudaSuccess) return err;
-  if (smem_app) {
-    switch (tile) {
-      case 8: return launch_tile<8, true>(p, dmax, k, st);
-      case 4: return launch_tile<4, true>(p, dmax, k, st);
-      case 2: return launch_tile<2, true>(p, dmax, k, st);
-      case 1: return launch_tile<1, true>(p, dmax, k, st);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  switch (tile) {
-    case 32: return launch_tile<32, false>(p, dmax, k, st);
-    case 16: return launch_tile<16, false>(p, dmax, k, st);
-    case 8: return launch_tile<8, false>(p, dmax, k, st);
-    case 4: return launch_tile<4, false>(p, dmax, k, st);
-    case 2: return launch_tile<2, false>(p, dmax, k, st);
-    case 1: return launch_tile<1, false>(p, dmax, k, st);
+  // this library's pair alone: one dispatch a launch
+  switch (algo * 2 + minclamp_pre) {
+    case STREAMED_ALGO * 2 + STREAMED_PRE: break;
     default: return cudaErrorInvalidValue;
   }
+  cudaError_t err = cudaMemsetAsync(iters_out, 0, sizeof(int), st);
+  if (err != cudaSuccess) return err;
+  return launch_variant<STREAMED_ALGO, STREAMED_PRE>(p, tile, dmax, k,
+                                                     smem_app, st);
 }
 
 const char* streamed_minsum_error_string(int err) {

@@ -157,23 +157,26 @@ def cached_build(path: str, compile_to: Callable[[str], str]) -> dict:
     return {"path": path, "seconds": seconds, "log": log}
 
 
-def build_library(source: str, build_dir: str) -> dict:
-    """Compile ``source`` if this version of it and of the ``csrc/``
-    headers has not been built yet (``cached_build``'s result)."""
+def build_library(source: str, build_dir: str,
+                  defines: Sequence[str] = ()) -> dict:
+    """Compile ``source`` with the nvcc flags ``defines`` (``-DNAME=VALUE``)
+    if this version of it, of the ``csrc/`` headers and of ``defines`` has
+    not been built yet (``cached_build``'s result)."""
     files = [source] + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     name = os.path.splitext(os.path.basename(source))[0]
 
     def compile_to(out: str) -> str:
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-I", CSRC, "-o", out, source]
+               "-Xptxas", "-v", "-I", CSRC, *defines, "-o", out, source]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
         return res.stdout + res.stderr
 
-    return cached_build(library_path(name, files, (), build_dir), compile_to)
+    return cached_build(library_path(name, files, defines, build_dir),
+                        compile_to)
 
 
 def check_llr(llr, N: int) -> None:

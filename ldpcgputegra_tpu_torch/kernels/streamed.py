@@ -12,15 +12,17 @@ shared memory where ``tile`` codewords of it fit (``[N][tile]`` int8: up to
 2 codewords of 64800 bits, 8 of 16200), else in a device-memory scratch
 buffer (``[ceil(B / tile)][N][tile]``, synthqc).
 
-What bounds it on the card: the latency of each check lane's accesses,
-one round of a layer's checks after another.  ``pick_tile`` picks the
-variant, (APP placement, codewords per CTA, lanes per check), from the
-code, the batch and the card's SM count; ``smem_bytes`` and
+What bounds it on the card: the instructions each check lane's rounds
+issue and the latency of their accesses, one round of a layer's checks
+after another, in about equal parts (the source's header).  ``pick_tile``
+picks the variant, (APP placement, codewords per CTA, lanes per check),
+from the code, the batch and the card's SM count; ``smem_bytes`` and
 ``ctas_per_sm`` charge the variant it launches.
 
-The kernel is compiled at first use (``kernels/_lib.py``) and loaded with
-ctypes.  Importing this module needs neither nvcc nor CUDA.  On a CPU
-tensor the decoder runs the plain version
+The kernel is compiled (``kernels/_lib.py``) into one library for each
+(algorithm, minclamp) pair, at that pair's first use (``build``), and
+loaded with ctypes.  Importing this module needs neither nvcc nor CUDA.
+On a CPU tensor the decoder runs the plain version
 (``ops/layered.py::make_layered_decoder``); on a CUDA tensor it launches
 the kernel or raises.
 """
@@ -42,7 +44,8 @@ from . import _lib
 
 __all__ = ["make_streamed_decoder", "kernel_unsupported_reason", "pick_tile",
            "Variant", "variants", "smem_bytes", "ctas_per_sm",
-           "layer_shapes", "build", "launches", "SOURCE", "REPLACES"]
+           "layer_shapes", "build", "defines", "PAIRS", "launches",
+           "SOURCE", "REPLACES"]
 
 SOURCE = os.path.join(_lib.CSRC, "streamed_minsum.cu")
 BUILD_DIR = _lib.BUILD_DIR
@@ -54,7 +57,10 @@ TILES = (32, 16, 8, 4, 2, 1)  # codewords per CTA, APP in device memory
 SMEM_TILES = (8, 4, 2, 1)  # codewords per CTA, APP in shared memory
 DMAXES = (8, 16, 32)  # unrolled contribution array lengths
 LANES = (1, 2, 4)  # lanes a check; above 1 at DMAX 16 and 32, tiles <= 8
+APP_PAD = 16  # shared memory before the APP, for the pinned edges
 SMS_H100 = _lib.SMS_H100
+# the (algorithm, minclamp) pairs, one library each
+PAIRS = tuple((a, m) for a in _lib.ALGO for m in ("pre", "post"))
 
 # The pick's model of a check round, in units of a round with the APP in
 # shared memory (one device-memory trip, for the VN ids and messages): a
@@ -70,7 +76,8 @@ EDGE_COST = 0.125
 # the kernel, and nowhere else.
 launches = {"streamed_minsum": 0}
 
-_lib_handle: Optional[ctypes.CDLL] = None
+# the loaded libraries by (algorithm, minclamp)
+_lib_handles: dict[tuple[str, str], ctypes.CDLL] = {}
 
 
 class Variant(NamedTuple):
@@ -90,9 +97,10 @@ def _dmax(code: LdpcCode) -> int:
 
 
 def smem_bytes(code: LdpcCode, v: Variant) -> int:
-    """Shared memory of one CTA: the [N][tile] APP where it lives there, and
-    the tile's convergence flags."""
-    app = (code.N * v.tile + 15) & ~15 if v.placement == "smem" else 0
+    """Shared memory of one CTA: the [N][tile] APP and the pad before it
+    where the APP lives there, and the tile's convergence flags."""
+    app = (APP_PAD + ((code.N * v.tile + 15) & ~15)
+           if v.placement == "smem" else 0)
     return app + 4 * v.tile
 
 
@@ -144,24 +152,37 @@ def pick_tile(code: LdpcCode, B: int, sms: int = SMS_H100,
         prefer=lambda v: (v.placement != "smem", v.tile))
 
 
-def build() -> dict:
-    """Compile the kernel library if this source has not been built yet;
-    ``{"path", "seconds", "log"}`` (see ``_lib.build_library``)."""
-    return _lib.build_library(SOURCE, BUILD_DIR)
+def defines(algo: str = "OMS", minclamp: str = "pre") -> list[str]:
+    """The nvcc flags of the library of one (algorithm, minclamp) pair: the
+    source compiles that pair's check-node arithmetic alone, and its C
+    entry refuses any other pair."""
+    if algo not in _lib.ALGO or minclamp not in ("pre", "post"):
+        raise ValueError(f"no build for {algo!r} with minclamp {minclamp!r}")
+    return [f"-DSTREAMED_ALGO={_lib.ALGO[algo]}",
+            f"-DSTREAMED_PRE={int(minclamp == 'pre')}"]
 
 
-def _library() -> ctypes.CDLL:
-    global _lib_handle
-    if _lib_handle is None:
-        lib = ctypes.CDLL(build()["path"])
+def build(algo: str = "OMS", minclamp: str = "pre",
+          build_dir: str = BUILD_DIR) -> dict:
+    """Compile the library of one (algorithm, minclamp) pair if this source
+    has not been built for it yet; ``{"path", "seconds", "log"}`` (see
+    ``_lib.build_library``)."""
+    return _lib.build_library(SOURCE, build_dir, defines(algo, minclamp))
+
+
+def _library(algo: str, minclamp: str) -> ctypes.CDLL:
+    """The library of the pair, built and loaded at its first use."""
+    key = (algo, minclamp)
+    if key not in _lib_handles:
+        lib = ctypes.CDLL(build(algo, minclamp)["path"])
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.streamed_minsum_launch.argtypes = (
             [p] * 10 + [i, ctypes.c_longlong] + [i] * 15 + [p])
         lib.streamed_minsum_launch.restype = i
         lib.streamed_minsum_error_string.argtypes = [i]
         lib.streamed_minsum_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
+        _lib_handles[key] = lib
+    return _lib_handles[key]
 
 
 def kernel_unsupported_reason(code: LdpcCode, spec: LayeredSpec):
@@ -171,6 +192,10 @@ def kernel_unsupported_reason(code: LdpcCode, spec: LayeredSpec):
         return why
     if _dmax(code) == 0:
         return f"{code.name}: check degree above {DMAXES[-1]}"
+    # the kernel reads the edges past a layer's degree as pinned edges,
+    # which leave the two-min of two edges or more alone
+    if min(d for _, d in layer_shapes(code, spec.schedule)) < 2:
+        return f"{code.name}: a check of degree below 2"
     return None
 
 
@@ -198,6 +223,9 @@ def make_streamed_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
         raise NotImplementedError(why)
     dmax = _dmax(code)
     shapes = layer_shapes(code, spec.schedule)
+    # the library of the spec's pair (the kernel reads any minclamp but
+    # 'pre' as 'post', as the plain version does)
+    pair = (spec.algo, "pre" if spec.minclamp == "pre" else "post")
     # the tables and the SM count, read on the first call per card
     tables: dict[torch.device, tuple[dict, int]] = {}
     # the picks by (pick_tile, B, SMs) (_lib.cached_pick)
@@ -212,7 +240,7 @@ def make_streamed_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
         with span("decode", count=llr.shape[0]):
             if llr.device.type == "cpu":
                 return plain()(llr)
-            lib = _library()
+            lib = _library(*pair)
             dev = llr.device
             if dev not in tables:
                 tables[dev] = (edge_tables(code, spec, dev),

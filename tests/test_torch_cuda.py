@@ -435,20 +435,61 @@ _VARIANTS = [S.Variant(p, t, k)
              for t in ts for k in S.LANES if k == 1 or t <= 8]
 
 
+@pytest.fixture(scope="module")
+def streamed_pairs():
+    """The streamed kernel's eight libraries, one per (algorithm, minclamp)
+    pair, built at once (one nvcc each) before the tests that launch
+    them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(S.PAIRS)) as pool:
+        return list(pool.map(lambda am: S.build(*am), S.PAIRS))
+
+
 @pytest.mark.parametrize("variant", _VARIANTS, ids=str)
-@pytest.mark.parametrize("algo,minclamp", ALGOS)
+@pytest.mark.parametrize("algo,minclamp", ALL_PAIRS)
 @pytest.mark.parametrize("et", [False, True])
-def test_streamed_kernel_every_tile(dev, variant, algo, minclamp, et):
+def test_streamed_kernel_every_tile(dev, streamed_pairs, variant, algo,
+                                    minclamp, et):
     """Each build of the streamed kernel at DMAX 16 (both APP placements,
-    every tile, 1, 2 and 4 lanes a check), forced through its pick as
-    ``bench/tiles.py`` does, on a view with every feature and a ragged
-    batch."""
+    every tile, 1, 2 and 4 lanes a check) for each (algorithm, minclamp)
+    pair, forced through its pick as ``bench/tiles.py`` does, on a view
+    with every feature (pinned edges among them) and a ragged batch."""
     code = _streamed_code("16200x10800")
     assert variant in S.variants(code)
     spec = LayeredSpec(algo=algo, iters=5, minclamp=minclamp, early_term=et)
     llr = torch.from_numpy(_llrs(code.N, 37, seed=6, std=0.6)).to(dev)
     with tiles.forced_streamed(variant):
         kb, ki = S.make_streamed_decoder(code, spec)(llr)
+    pb, pi = make_layered_decoder(code, spec, dev)(llr)
+    assert torch.equal(kb, pb) and int(ki) == int(pi)
+
+
+@pytest.mark.parametrize("B,variant", [(128, None), (77, None),
+                                       (77, S.Variant("smem", 2, 1))],
+                         ids=["128-pick", "77-pick", "77-smem2"])
+@pytest.mark.parametrize("algo,minclamp", ALL_PAIRS)
+@pytest.mark.parametrize("et", [False, True])
+def test_streamed_kernel_64800_every_pair(dev, streamed_pairs, B, variant,
+                                          algo, minclamp, et):
+    """64800x32400, the benchmark's DVB-S2 view, for each (algorithm,
+    minclamp) pair: at B=128 (the block cell's batch) and at a ragged 77
+    under the pick (smem/1/1, one wave under the card's SMs), and at 77 in
+    tile 2 (a half-empty last tile); frames that converge at different
+    iterations, so that ET freezes some and not others."""
+    code = _streamed_code("64800x32400")
+    spec = LayeredSpec(algo=algo, iters=6, minclamp=minclamp, early_term=et)
+    llr = torch.from_numpy(_spread_llrs(code.N, B, seed=12)).to(dev)
+    dec = S.make_streamed_decoder(code, spec)
+    if variant is None:
+        assert S.pick_tile(code, B, _lib.sm_count(dev)) == S.Variant(
+            "smem", 1, 1)
+        kb, ki = dec(llr)
+    else:
+        with tiles.forced_streamed(variant):
+            kb, ki = dec(llr)
     pb, pi = make_layered_decoder(code, spec, dev)(llr)
     assert torch.equal(kb, pb) and int(ki) == int(pi)
 

@@ -317,6 +317,6 @@ def test_cli_info_resolves_the_streamed_backend(capsys):
     assert "backend      : cuda-streamed" in out
     assert "105 (qc 105, sub-pass 23) of the QC view" in out
     assert ("1 codewords per CTA at batch 512 on 132 SMs, 1 lanes a check, "
-            "APP in shared memory (64804 B shared memory a CTA)") in out
+            "APP in shared memory (64820 B shared memory a CTA)") in out
     cli.main(["--code", "64800x32400", "--info", "--device", "cpu"])
     assert "backend      : torch" in capsys.readouterr().out

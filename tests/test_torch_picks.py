@@ -88,8 +88,9 @@ def test_layered_packs_four_codewords_at_dmax_8_only():
     ("synthqc-256x128x6-z1024", set()),
 ])
 def test_streamed_app_in_shared_memory_where_a_tile_fits(name, placements):
-    """tile x N bytes within the 232,448 a block may use: 16200 up to 8
-    codewords, 64800 up to 2, synthqc (262,144 bits) none; every device-
+    """tile x N bytes (and the 16-byte pad before them, where the pinned
+    edges read and write) within the 232,448 a block may use: 16200 up to
+    8 codewords, 64800 up to 2, synthqc (262,144 bits) none; every device-
     memory tile is built for every code."""
     code = effective_code(load_code(name))
     vs = S.variants(code)
@@ -97,7 +98,8 @@ def test_streamed_app_in_shared_memory_where_a_tile_fits(name, placements):
         placements
     assert {v.tile for v in vs if v.placement == "device"} == set(S.TILES)
     for v in vs:
-        app = (code.N * v.tile + 15) & ~15 if v.placement == "smem" else 0
+        app = (16 + ((code.N * v.tile + 15) & ~15) if v.placement == "smem"
+               else 0)
         assert S.smem_bytes(code, v) == app + 4 * v.tile <= _lib.SMEM_MAX
     pick = S.pick_tile(code, 512)
     assert pick.placement == ("smem" if placements else "device")
