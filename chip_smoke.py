@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``ldpcgputegra_tpu_torch/csrc/``
-(one nvcc per source, all at once): the QC kernel (``layered_minsum``), the
-gather kernel for non-QC codes (``gather_minsum``), the streamed kernel
-for the DVB-S2 QC views and synthqc (``streamed_minsum``, one library per
-(algorithm, minclamp) pair), the probes of
-the card's ceilings (``probes.cu``: ``probe_mix``, ``probe_peak``,
+(all at once): the decode kernels, one library per (algorithm, minclamp)
+pair each, which are the QC kernel (``layered_minsum``), the gather kernel
+for non-QC codes (``gather_minsum``) and the streamed kernel for the
+DVB-S2 QC views and synthqc (``streamed_minsum``); the probes of the
+card's ceilings (``probes.cu``: ``probe_mix``, ``probe_peak``,
 ``probe_copy``) and the roll probe (``roll_probe.cu``: ``probe_roll``).
 Prints what the decode kernels compile to (SASS instructions per edge
 update, registers, stack, spills).  Holds the QC kernel against the
@@ -1169,6 +1169,7 @@ def main() -> int:
     from ldpcgputegra_tpu_torch.bench.roofline import hw_spec, roofline_report
     from ldpcgputegra_tpu_torch.codes.registry import load_code
     from ldpcgputegra_tpu_torch.decoder import backend_for, effective_code
+    from ldpcgputegra_tpu_torch.kernels import _lib
     from ldpcgputegra_tpu_torch.kernels import gather as G
     from ldpcgputegra_tpu_torch.kernels import layered as K
     from ldpcgputegra_tpu_torch.kernels import streamed as S
@@ -1198,13 +1199,14 @@ def main() -> int:
     print(f"[device] nvidia-smi: {smi}")
     phase_done(1)
 
-    # 2. build: one nvcc per source (the streamed kernel's, one per
-    # (algorithm, minclamp) pair), all started together
-    with ThreadPoolExecutor(4 + len(S.PAIRS)) as pool:
-        builds = {"layered_minsum": pool.submit(K.build),
-                  "gather_minsum": pool.submit(G.build),
-                  **{f"streamed_minsum {a}/{m}": pool.submit(S.build, a, m)
-                     for a, m in S.PAIRS},
+    # 2. build: one nvcc per probe source and per decode kernel and
+    # (algorithm, minclamp) pair, all started together
+    decode_kernels = {"layered_minsum": K, "gather_minsum": G,
+                      "streamed_minsum": S}
+    with ThreadPoolExecutor(2 + 3 * len(_lib.PAIRS)) as pool:
+        builds = {**{f"{name} {a}/{m}": pool.submit(mod.build, a, m)
+                     for name, mod in decode_kernels.items()
+                     for a, m in _lib.PAIRS},
                   "probes": pool.submit(V.build),
                   "roll_probe": pool.submit(P.build)}
         builds = {name: f.result() for name, f in builds.items()}
@@ -1466,16 +1468,18 @@ def main() -> int:
               f"the probed int8x4 rate")
         # the issue floor of the kernel's own SASS: edge updates x its ALU
         # instructions an edge over the probed ALU-instruction rate
+        pair = _lib.pair(spec10)
         if kname == "layered_minsum":
-            sym = sass.layered_symbol(code, K.pick_tile(code, B, sm_count))
+            sym = sass.layered_symbol(code, K.pick_tile(code, B, sm_count),
+                                      *pair)
         elif kname == "streamed_minsum":
             sym = sass.streamed_symbol(effective_code(code),
                                        S.pick_tile(effective_code(code), B,
-                                                   sm_count))
+                                                   sm_count), *pair)
         else:
-            sym = sass.gather_symbol(code, G.pick_tile(code, B, sm_count))
-        lib = {"layered_minsum": K, "streamed_minsum": S,
-               "gather_minsum": G}[kname].build()["path"]
+            sym = sass.gather_symbol(code, G.pick_tile(code, B, sm_count),
+                                     *pair)
+        lib = decode_kernels[kname].build(*pair)["path"]
         alu_edge = sass.per_edge(lib, *sym)[1]
         t_issue = tab["edge_updates"] * alu_edge / rates["alu_instructions"]
         print(f"[issue] {kname} {name} B={B}: {alu_edge:.2f} ALU instructions "

@@ -113,14 +113,18 @@ def card_name(device) -> Optional[str]:
 
 
 def build_all() -> None:
-    """Build the three decode kernels' libraries (one nvcc each, started
-    together) and the native library, before any point's clock starts."""
+    """Build the three decode kernels' libraries of every curve's
+    (algorithm, minclamp) pair and the native library (one compiler each,
+    started together), before any point's clock starts."""
     from ..golden import native
     from ..kernels import gather, layered, streamed
 
-    with ThreadPoolExecutor(4) as pool:
-        futures = [pool.submit(f) for f in (layered.build, gather.build,
-                                            streamed.build, native.build)]
+    # no curve sets minclamp: each runs SweepConfig's default
+    pairs = sorted({(c[1], SweepConfig.minclamp) for c in CURVES})
+    with ThreadPoolExecutor(3 * len(pairs) + 1) as pool:
+        futures = [pool.submit(mod.build, *pair)
+                   for mod in (layered, gather, streamed) for pair in pairs]
+        futures.append(pool.submit(native.build))
         for f in futures:
             f.result()
 

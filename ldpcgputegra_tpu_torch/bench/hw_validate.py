@@ -23,8 +23,10 @@ mismatch ends the run with a non-zero exit, naming the pair.  The pairs
   plain version at the JAX tool's ``GATHER`` codes;
 * ``compile``: each ``csrc/*.cu`` built cold by ``kernels/_lib.py::
   build_library`` into a temporary directory (never ``_build/``), its nvcc
-  seconds; then, with the libraries in ``_build/``, a fresh decoder's first
-  call against its second, by the host clock.
+  seconds (a decode kernel's library of ``SPEC``'s (algorithm, minclamp)
+  pair, as a first decode builds it); then, with the libraries in
+  ``_build/``, a fresh decoder's first call against its second, by the
+  host clock.
 
 Kernels are timed by ``bench/harness.py::measure_call`` (CUDA events); the
 plain version decodes 2 inputs for the bit check and is not timed.  Writes
@@ -44,6 +46,7 @@ build or launch fails the run.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -84,9 +87,9 @@ TAIL = [
 # first call against second: K1, K2 and the gather kernel at their codes
 FIRST_CALL = [("2304x1152", 2048), ("64800x32400", 256), ("4000x2000", 1024),
               ("8000x4000", 1024), ("9972x4986", 1024), ("20000x10000", 1024)]
-SOURCES = {"layered_minsum": layered.SOURCE, "gather_minsum": gather.SOURCE,
-           "streamed_minsum": streamed.SOURCE, "probes": vpu_probe.SOURCE,
-           "roll_probe": profile_1944.SOURCE}
+DECODE_KERNELS = {"layered_minsum": layered, "gather_minsum": gather,
+                  "streamed_minsum": streamed}
+PROBES = {"probes": vpu_probe.SOURCE, "roll_probe": profile_1944.SOURCE}
 PLAIN_INPUTS = 2  # the plain version's bit check
 OUT = os.path.join(BENCH_DIR, "HWVALIDATE.md")
 
@@ -202,17 +205,17 @@ def price_compiles(dev, smi) -> list[dict]:
     its second at ``FIRST_CALL``, the libraries already in ``_build/``."""
     recs = []
     with tempfile.TemporaryDirectory(prefix="ldpc_cold_build_") as tmp:
-        for name, source in SOURCES.items():
-            out = os.path.join(tmp, name)
-            # K2 is built one (algorithm, minclamp) pair a library: the
-            # default pair's, as a first decode builds it
-            info = (streamed.build(build_dir=out) if source == streamed.SOURCE
-                    else _lib.build_library(source, out))
+        builds = [(name, functools.partial(mod.build, *_lib.pair(SPEC)))
+                  for name, mod in DECODE_KERNELS.items()]
+        builds += [(name, functools.partial(_lib.build_library, source))
+                   for name, source in PROBES.items()]
+        for name, build in builds:
+            info = build(build_dir=os.path.join(tmp, name))
             recs.append({"key": "compile", "library": name,
                          "nvcc_s": info["seconds"], "card": smi})
             print(json.dumps(recs[-1]), flush=True)
-    for mod in (layered, gather, streamed):
-        mod.build()  # the warm cache the first calls below load from
+    for mod in DECODE_KERNELS.values():
+        mod.build(*_lib.pair(SPEC))  # the warm cache the first calls load from
     for name, B in FIRST_CALL:
         code = load_code(name)
         x = _inputs(code, B, 1, dev)[0]

@@ -33,7 +33,6 @@ import ctypes
 import json
 import os
 import sys
-from typing import Optional
 
 import numpy as np
 import torch
@@ -70,7 +69,12 @@ BACKENDS = {"pallas": "cuda", "pallas-gather": "cuda-gather", "xla": "torch"}
 # the kernel, and nowhere else.
 launches = {"probe_roll": 0}
 
-_lib_handle: Optional[ctypes.CDLL] = None
+# the library's C functions: (argtypes, restype)
+_FUNCTIONS = {
+    "probe_roll_launch": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                          + [ctypes.c_void_p], ctypes.c_int),
+    "roll_probe_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
 
 
 def build() -> dict:
@@ -80,16 +84,7 @@ def build() -> dict:
 
 
 def _library() -> ctypes.CDLL:
-    global _lib_handle
-    if _lib_handle is None:
-        lib = ctypes.CDLL(build()["path"])
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.probe_roll_launch.argtypes = [p, p, p, i, i, i, i, p]
-        lib.probe_roll_launch.restype = i
-        lib.roll_probe_error_string.argtypes = [i]
-        lib.roll_probe_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
+    return _lib.load(SOURCE, _FUNCTIONS)
 
 
 def roll_shifts(Z: int, n_rolls: int) -> list[int]:

@@ -10,14 +10,13 @@ one pass updates (its unrolled edge slots, ``DMAX / k`` times the
 codewords a thread packs; the code's degree where the edges run in loops
 nested in it, as in a QC kernel with runtime edge loops), plus a nested
 edge loop's body over its int8 accesses, is the count per edge update; the
-second count keeps those on the integer-ALU pipe (``vpu_probe.alu_pipe``), the unit of the
-probes' ceilings.  A static count: in the QC kernel the
-check-node arithmetic of all four algorithms and both minclamp placements
-sits in the loop (the gather and streamed kernels build one pair each, and
-``gather_symbol`` and ``streamed_symbol`` name the pair), and an unrolled
-slot above the code's degree is skipped at run time.  ``--root`` reads
-another checkout's built libraries (``bench/ab.py`` builds them) beside
-this one's.  Needs ``cuobjdump`` (the CUDA toolkit).
+second count keeps those on the integer-ALU pipe (``vpu_probe.alu_pipe``),
+the unit of the probes' ceilings.  A static count: each library holds one
+(algorithm, minclamp) pair's check-node arithmetic (``layered_symbol``,
+``gather_symbol`` and ``streamed_symbol`` name a build with its pair), and
+an unrolled slot above the code's degree is skipped at run time.
+``--root`` reads another checkout's built libraries (``bench/ab.py``
+builds them) beside this one's.  Needs ``cuobjdump`` (the CUDA toolkit).
 """
 
 from __future__ import annotations
@@ -151,8 +150,7 @@ def per_edge(path: str, symbol: str, edges: float) -> tuple[float, float]:
 
 def _libs(root: str) -> dict[str, list[str]]:
     """Kernel name -> its built libraries under ``root``, the newest
-    first (the streamed kernel has one for each (algorithm, minclamp)
-    pair built)."""
+    first (one for each (algorithm, minclamp) pair built)."""
     out = {}
     for name in ("layered_minsum", "streamed_minsum", "gather_minsum"):
         paths = glob.glob(os.path.join(root, "ldpcgputegra_tpu_torch",
@@ -164,21 +162,27 @@ def _libs(root: str) -> dict[str, list[str]]:
 
 # (kernel, mangled-name fragment, edges one pass of the check loop's own
 # instructions updates, what it is): the variants the picks take on the
-# main paths (2304x1152 B=8192 and 1944x972 B=1024; the streamed and
-# gather kernels' below), and the builds of an earlier design where another
-# checkout is read (one QC kernel with runtime edge loops, streamed kernels
-# templated on the tile and DMAX only or on the placement and lanes with
-# the algorithm chosen at run time, a gather kernel with the algorithm
-# chosen at run time)
+# main paths, OMS with minclamp 'pre' (ALGO 1, PRE true), and the builds
+# of an earlier design where another checkout is read (QC kernels with the
+# algorithm chosen at run time, one with runtime edge loops, streamed
+# kernels templated on the tile and DMAX only or on the placement and
+# lanes with the algorithm chosen at run time, a gather kernel with the
+# algorithm chosen at run time)
 VARIANTS = [
-    ("layered_minsum", "kernelILi16ELi4ELi8EE", 32, "tile 16, 4 a thread"),
-    ("layered_minsum", "kernelILi8ELi4ELi8EE", 32, "tile 8, 4 a thread"),
+    # the QC kernel's picks at 2304x1152 B=8192 and 1944x972 B=1024
+    ("layered_minsum", "kernelILi16ELi4ELi8ELi1ELb1EE", 32,
+     "tile 16, 4 a thread, OMS pre"),
+    ("layered_minsum", "kernelILi8ELi4ELi8ELi1ELb1EE", 32,
+     "tile 8, 4 a thread, OMS pre"),
+    ("layered_minsum", "kernelILi16ELi4ELi8EE", 32,
+     "tile 16, 4 a thread, runtime algorithm"),
+    ("layered_minsum", "kernelILi8ELi4ELi8EE", 32,
+     "tile 8, 4 a thread, runtime algorithm"),
     # runtime edge loops: the degree, 7296 / 1152 at 2304x1152
     ("layered_minsum", "layered_minsum_kernelEN", 7296 / 1152,
      "tile 32, runtime edge loops"),
-    # OMS with minclamp 'pre' (ALGO 1, PRE true): the picks at 64800x32400
-    # B=128-512, 64800x6480-dvbs2 B=256, 16200x7560 B=1024 and synthqc
-    # B=256
+    # the picks at 64800x32400 B=128-512, 64800x6480-dvbs2 B=256,
+    # 16200x7560 B=1024 and synthqc B=256
     ("streamed_minsum", "kernelILi1ELi8ELi1ELb1ELi1ELb1EE", 8,
      "shared-memory APP, tile 1, 1 lane a check, DMAX 8, OMS pre"),
     ("streamed_minsum", "kernelILi1ELi32ELi4ELb1ELi1ELb1EE", 8,
@@ -200,9 +204,8 @@ VARIANTS = [
     ("streamed_minsum", "kernelILi2ELi32EEEv", 32,
      "device-memory APP, tile 2, DMAX 32, one lane a check"),
     ("gather_minsum", "kernelILi8ELi8EEEv", 8, "tile 8, DMAX 8, runtime algorithm"),
-    # OMS with minclamp 'pre' (ALGO 1, PRE true): the picks at 4000x2000
-    # B=4096 and at B <= 1024 (20000x10000, phase 2), at 1200x600 and at
-    # 2048x384 B=8192
+    # the picks at 4000x2000 B=4096 and at B <= 1024 (20000x10000, phase
+    # 2), at 1200x600 and at 2048x384 B=8192
     ("gather_minsum", "kernelILi16ELi2ELi8ELi1ELb1EE", 16,
      "tile 16, 4 a thread, 2 lanes a check, DMAX 8, OMS pre"),
     ("gather_minsum", "kernelILi4ELi2ELi8ELi1ELb1EE", 16,
@@ -214,38 +217,41 @@ VARIANTS = [
 ]
 
 
-def layered_symbol(code, tile: int) -> tuple[str, int]:
+def _pair(algo: str, minclamp: str) -> str:
+    """The mangled-name fragment of a build's (algorithm, minclamp) pair."""
+    return f"ELi{_lib.ALGO[algo]}ELb{int(minclamp == 'pre')}EE"
+
+
+def layered_symbol(code, tile: int, algo: str = "OMS",
+                   minclamp: str = "pre") -> tuple[str, int]:
     """The mangled-name fragment of the QC kernel's build for ``code`` at
-    ``tile``, and the edges one pass of its check loop updates."""
+    ``tile``, built for ``algo`` and ``minclamp``, and the edges one pass of
+    its check loop updates."""
     from ..kernels import layered
 
-    dmax, pack = layered._dmax(code), layered.pack(code)
-    return f"kernelILi{tile}ELi{pack}ELi{dmax}EE", dmax * pack
+    dmax, pack = _lib.dmax(code.layers), layered.pack(code)
+    return (f"kernelILi{tile}ELi{pack}ELi{dmax}" + _pair(algo, minclamp),
+            dmax * pack)
 
 
 def gather_symbol(code, v, algo: str = "OMS",
                   minclamp: str = "pre") -> tuple[str, int]:
-    """The same for the gather kernel's variant ``v``, built for ``algo``
-    and ``minclamp``: its check loop updates DMAX / k edges of four
-    codewords."""
+    """The same for the gather kernel's variant ``v``: its check loop
+    updates DMAX / k edges of four codewords."""
     from ..kernels import gather
 
-    dmax = gather._dmax(code)
-    return (f"kernelILi{v.tile}ELi{v.k}ELi{dmax}"
-            f"ELi{_lib.ALGO[algo]}ELb{int(minclamp == 'pre')}EE",
+    dmax = _lib.dmax(code.classes)
+    return (f"kernelILi{v.tile}ELi{v.k}ELi{dmax}" + _pair(algo, minclamp),
             dmax // v.k * gather.W)
 
 
 def streamed_symbol(code, v, algo: str = "OMS",
                     minclamp: str = "pre") -> tuple[str, int]:
-    """The same for the streamed kernel's variant ``v``, built for
-    ``algo`` and ``minclamp``."""
-    from ..kernels import streamed
-
-    dmax = streamed._dmax(code)
+    """The same for the streamed kernel's variant ``v``."""
+    dmax = _lib.dmax(code.layers)
     smem = int(v.placement == "smem")
     return (f"kernelILi{v.tile}ELi{dmax}ELi{v.k}ELb{smem}"
-            f"ELi{_lib.ALGO[algo]}ELb{int(minclamp == 'pre')}EE", dmax // v.k)
+            + _pair(algo, minclamp), dmax // v.k)
 
 
 def report(root: str, log=print) -> dict:

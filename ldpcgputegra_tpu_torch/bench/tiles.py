@@ -187,13 +187,14 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"[tiles] {smi}")
     kernels = KERNELS if args.kernel == "all" else (args.kernel,)
+    # the checks' spec and this one share the (algorithm, minclamp) pair
+    spec = LayeredSpec(algo="OMS", iters=args.iters)
     for kernel in kernels:
         info = {"layered": layered, "streamed": streamed,
-                "gather": gather}[kernel].build()
+                "gather": gather}[kernel].build(*_lib.pair(spec))
         print(f"[tiles] {kernel} built in {info['seconds']:.2f} s")
     for kernel in kernels if args.check else ():
         check(kernel, dev)
-    spec = LayeredSpec(algo="OMS", iters=args.iters)
     for kernel in kernels:
         for code, B, _, make, vs, force, pick in _cases(kernel, False):
             dec = make(code, spec)

@@ -78,7 +78,14 @@ COPY_MIB = 256  # five times the H100's 50 MB L2
 # it launches its kernel, and nowhere else.
 launches = {"probe_mix": 0, "probe_peak": 0, "probe_copy": 0}
 
-_lib_handle: Optional[ctypes.CDLL] = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the library's C functions: (argtypes, restype)
+_FUNCTIONS = {
+    "probe_mix_launch": ([_P, _P, _I, _I, _I, _I, _P], _I),
+    "probe_peak_launch": ([_P, _P, _I, _I, _I, _P], _I),
+    "probe_copy_launch": ([_P, _P, ctypes.c_longlong, _P], _I),
+    "probes_error_string": ([_I], ctypes.c_char_p),
+}
 
 
 def build() -> dict:
@@ -88,20 +95,7 @@ def build() -> dict:
 
 
 def _library() -> ctypes.CDLL:
-    global _lib_handle
-    if _lib_handle is None:
-        lib = ctypes.CDLL(build()["path"])
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.probe_mix_launch.argtypes = [p, p, i, i, i, i, p]
-        lib.probe_peak_launch.argtypes = [p, p, i, i, i, p]
-        lib.probe_copy_launch.argtypes = [p, p, ctypes.c_longlong, p]
-        for fn in (lib.probe_mix_launch, lib.probe_peak_launch,
-                   lib.probe_copy_launch):
-            fn.restype = i
-        lib.probes_error_string.argtypes = [i]
-        lib.probes_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
+    return _lib.load(SOURCE, _FUNCTIONS)
 
 
 def _check(x: torch.Tensor) -> None:

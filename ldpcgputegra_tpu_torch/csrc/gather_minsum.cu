@@ -22,9 +22,9 @@
 // frames.  The design (PERF.md has the numbers):
 //
 //  * The algorithm and the minclamp placement are template parameters (the
-//    compile-time forms of minsum_common.cuh), dispatched once in the C
-//    entry: a build carries one pair's check-node arithmetic and no per-edge
-//    select.
+//    compile-time forms of minsum_common.cuh), and a library is built for
+//    one pair (MINSUM_ALGO, MINSUM_PRE): a build carries that pair's
+//    check-node arithmetic and no per-edge select.
 //  * Four codewords a thread (W = 4).  One 32-bit shared-memory APP
 //    access and one 32-bit message access serve four codewords, with one
 //    VN id load and one address; the bytes are
@@ -387,7 +387,9 @@ extern "C" {
 
 // Launch one decode on `stream` in the build (tile codewords per CTA, k
 // lanes a check, contribution arrays of dmax >= every layer's degree);
-// `msgs` is scratch of ceil(B / tile) * n_edges * tile bytes.  Returns a cudaError_t (0 on success).
+// `msgs` is scratch of ceil(B / tile) * n_edges * tile bytes.  `algo` and
+// `minclamp_pre` must be this library's pair.  Returns a cudaError_t (0 on
+// success).
 int gather_minsum_launch(const void* llr, void* bits, void* msgs,
                          void* iters_out, const void* row_ptr,
                          const void* n_checks, const void* deg, const void* vn,
@@ -401,26 +403,15 @@ int gather_minsum_launch(const void* llr, void* bits, void* msgs,
            static_cast<const int*>(row_ptr), static_cast<const int*>(n_checks),
            static_cast<const int*>(deg), static_cast<const uint16_t*>(vn),
            n_layers, n_edges, N, B, iters, early_term,
-           CnSpec{algo, minclamp_pre, offset, nms_f, nms_f2, sat_var, sat_msg}};
-  if (B <= 0 || N <= 0 || N > 65535 || n_layers <= 0 || n_edges <= 0 ||
+           CnSpec{offset, nms_f, nms_f2, sat_var, sat_msg}};
+  if (!built_pair(algo, minclamp_pre) || B <= 0 || N <= 0 || N > 65535 ||
+      n_layers <= 0 || n_edges <= 0 ||
       static_cast<long long>(n_edges) * tile >= (1LL << 31) ||
-      sat_var <= 0 || sat_var > 127 || sat_msg <= 0 ||
-      (minclamp_pre != 0 && minclamp_pre != 1))
+      sat_var <= 0 || sat_var > 127 || sat_msg <= 0)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(iters_out, 0, sizeof(int), st);
   if (err != cudaSuccess) return err;
-  // the eight (algorithm, minclamp) builds: one dispatch a launch
-  switch (algo * 2 + minclamp_pre) {
-    case MS * 2 + 0: return launch_variant<MS, false>(p, tile, k, dmax, st);
-    case MS * 2 + 1: return launch_variant<MS, true>(p, tile, k, dmax, st);
-    case OMS * 2 + 0: return launch_variant<OMS, false>(p, tile, k, dmax, st);
-    case OMS * 2 + 1: return launch_variant<OMS, true>(p, tile, k, dmax, st);
-    case NMS * 2 + 0: return launch_variant<NMS, false>(p, tile, k, dmax, st);
-    case NMS * 2 + 1: return launch_variant<NMS, true>(p, tile, k, dmax, st);
-    case NMS2 * 2 + 0: return launch_variant<NMS2, false>(p, tile, k, dmax, st);
-    case NMS2 * 2 + 1: return launch_variant<NMS2, true>(p, tile, k, dmax, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return launch_variant<MINSUM_ALGO, MINSUM_PRE>(p, tile, k, dmax, st);
 }
 
 const char* gather_minsum_error_string(int err) {

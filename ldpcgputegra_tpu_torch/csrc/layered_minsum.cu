@@ -27,6 +27,10 @@
 //  * The contributions live in registers: the edge loops are unrolled to
 //    DMAX (8, 16 or 32, a template parameter, the smallest that holds the
 //    code's degrees), so no array is indexed at run time (no local memory).
+//  * The algorithm and the minclamp placement are template parameters (the
+//    compile-time forms of minsum_common.cuh), and a library is built for
+//    one pair (MINSUM_ALGO, MINSUM_PRE): a round carries that pair's
+//    check-node arithmetic alone, with no per-edge select.
 //  * The QC structure: a check's VNs are its block-row's columns and
 //    shifts, read once per block-row from shared memory, and its lane walks
 //    z = ty, ty + lanes, ... with r += lanes; r -= (r >= Z) ? Z : 0, so an
@@ -119,9 +123,9 @@ __device__ __forceinline__ int byte_of(typename Word<W>::T w, int k) {
   else return static_cast<int>(static_cast<int8_t>(w >> (8 * k)));
 }
 
-// one CTA an SM (up to 128 registers a thread: the packed variants take
-// 124 and spill nothing); kernels/layered.py::ctas_per_sm counts on it
-template <int TB, int W, int DMAX>
+// one CTA an SM (up to 128 registers a thread, and no spill: PERF.md has
+// each build's count); kernels/layered.py::ctas_per_sm counts on it
+template <int TB, int W, int DMAX, int ALGO, bool PRE>
 __global__ void __launch_bounds__(NTHREADS, 1)
 layered_minsum_kernel(Params p) {
   using T = typename Word<W>::T;
@@ -221,26 +225,29 @@ layered_minsum_kernel(Params p) {
                 const int cj = clampi(byte_of<W>(aw[j], k) -
                                           byte_of<W>(mw[j], k), sv);
                 c[j][k] = cj;
-                two_min(j, cn_abs(cj, cn), min1[k], min2[k]);
+                two_min(j, cn_abs<ALGO, PRE>(cj, cn), min1[k], min2[k]);
                 parity[k] ^= (cj > 0);
               }
             }
           }
           int f1[W], f2[W];
 #pragma unroll
-          for (int k = 0; k < W; ++k) cn_f(min1[k], min2[k], cn, f1[k], f2[k]);
+          for (int k = 0; k < W; ++k)
+            cn_f<ALGO, PRE>(min1[k], min2[k], cn, f1[k], f2[k]);
 #pragma unroll
           for (int j = 0; j < DMAX; ++j) {
             if (j < deg) {
               if constexpr (W == 1) {
-                const int m = cn_msg(c[j][0], parity[0], min1[0], f1[0], f2[0], cn);
+                const int m = cn_msg<ALGO, PRE>(c[j][0], parity[0], min1[0],
+                                                f1[0], f2[0], cn);
                 mt[(slot0 + j * Z + z) * COLS] = static_cast<int8_t>(m);
                 at[v[j]] = static_cast<int8_t>(clampi(c[j][0] + m, sv));
               } else {
                 uint32_t mo = 0, ao = 0;
 #pragma unroll
                 for (int k = 0; k < W; ++k) {
-                  const int m = cn_msg(c[j][k], parity[k], min1[k], f1[k], f2[k], cn);
+                  const int m = cn_msg<ALGO, PRE>(c[j][k], parity[k], min1[k],
+                                                  f1[k], f2[k], cn);
                   mo |= (static_cast<uint32_t>(m) & 0xffu) << (8 * k);
                   ao |= (static_cast<uint32_t>(clampi(c[j][k] + m, sv)) & 0xffu)
                         << (8 * k);
@@ -323,25 +330,37 @@ layered_minsum_kernel(Params p) {
   }
 }
 
-template <int TB, int W, int DMAX>
+template <int TB, int W, int DMAX, int ALGO, bool PRE>
 cudaError_t launch(const Params& p, cudaStream_t st) {
   const size_t smem = smem_bytes(p.N, p.n_edges, p.n_layers, TB);
   cudaError_t err = cudaFuncSetAttribute(
-      layered_minsum_kernel<TB, W, DMAX>,
+      layered_minsum_kernel<TB, W, DMAX, ALGO, PRE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.B + TB - 1) / TB), block(NTHREADS);
-  layered_minsum_kernel<TB, W, DMAX><<<grid, block, smem, st>>>(p);
+  layered_minsum_kernel<TB, W, DMAX, ALGO, PRE><<<grid, block, smem, st>>>(p);
   return cudaGetLastError();
 }
 
 // four codewords a thread at DMAX 8, one at 16 and 32
-template <int TB>
+template <int TB, int ALGO, bool PRE>
 cudaError_t launch_tile(const Params& p, int dmax, cudaStream_t st) {
   switch (dmax) {
-    case 8: return launch<TB, 4, 8>(p, st);
-    case 16: return launch<TB, 1, 16>(p, st);
-    case 32: return launch<TB, 1, 32>(p, st);
+    case 8: return launch<TB, 4, 8, ALGO, PRE>(p, st);
+    case 16: return launch<TB, 1, 16, ALGO, PRE>(p, st);
+    case 32: return launch<TB, 1, 32, ALGO, PRE>(p, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int ALGO, bool PRE>
+cudaError_t launch_variant(const Params& p, int tile, int dmax,
+                           cudaStream_t st) {
+  switch (tile) {
+    case 32: return launch_tile<32, ALGO, PRE>(p, dmax, st);
+    case 16: return launch_tile<16, ALGO, PRE>(p, dmax, st);
+    case 8: return launch_tile<8, ALGO, PRE>(p, dmax, st);
+    case 4: return launch_tile<4, ALGO, PRE>(p, dmax, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -354,7 +373,8 @@ extern "C" {
 // contribution arrays of `dmax` (>= every block-row's degree); `msgs` is
 // scratch of ceil(B / tile) * Z * n_edges * tile bytes; `ok` is null or B
 // bytes for the convergence mask (not with early_term).  Returns a
-// cudaError_t (0 on success).
+// cudaError_t (0 on success).  `algo` and `minclamp_pre` must be this
+// library's pair.
 int layered_minsum_launch(const void* llr, void* bits, void* msgs,
                           void* iters_out, void* ok, const void* row_ptr,
                           const void* cols, const void* shifts, int n_layers,
@@ -366,22 +386,16 @@ int layered_minsum_launch(const void* llr, void* bits, void* msgs,
            static_cast<int8_t*>(msgs), static_cast<int*>(iters_out),
            static_cast<uint8_t*>(ok), static_cast<const int*>(row_ptr), static_cast<const int*>(cols),
            static_cast<const int*>(shifts), n_layers, n_edges, N, Z, B,
-           iters, early_term,
-           CnSpec{algo, minclamp_pre, offset, nms_f, nms_f2, sat_var, sat_msg}};
-  if (B <= 0 || N <= 0 || Z <= 0 || n_layers <= 0 || n_edges <= 0 ||
-      (ok && early_term) ||
+           iters, early_term, CnSpec{offset, nms_f, nms_f2, sat_var, sat_msg}};
+  if (!built_pair(algo, minclamp_pre) || B <= 0 || N <= 0 || Z <= 0 ||
+      n_layers <= 0 || n_edges <= 0 || (ok && early_term) ||
       static_cast<long long>(Z) * n_edges * tile >= (1LL << 31) ||
-      static_cast<long long>(N) * tile >= (1LL << 31))
+      static_cast<long long>(N) * tile >= (1LL << 31) ||
+      sat_var <= 0 || sat_var > 127 || sat_msg <= 0)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(iters_out, 0, sizeof(int), st);
   if (err != cudaSuccess) return err;
-  switch (tile) {
-    case 32: return launch_tile<32>(p, dmax, st);
-    case 16: return launch_tile<16>(p, dmax, st);
-    case 8: return launch_tile<8>(p, dmax, st);
-    case 4: return launch_tile<4>(p, dmax, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return launch_variant<MINSUM_ALGO, MINSUM_PRE>(p, tile, dmax, st);
 }
 
 const char* layered_minsum_error_string(int err) {

@@ -10,23 +10,35 @@
 //   parity  = XOR of (c_j > 0)
 //   msg_j   = +-f1 for the min edge (a_j == min1), +-f2 otherwise, with the
 //             sign of parity ^ (c_j > 0), clamped to +-sat_msg under 'pre'.
+//
+// Every decode library is built for one (algorithm, minclamp) pair:
+// kernels/_lib.py::defines passes -DMINSUM_ALGO=<Algo> -DMINSUM_PRE=<0|1>,
+// a kernel takes the pair as template parameters and calls the forms below
+// with them, so it carries that pair's arithmetic alone, with no per-edge
+// select, and its C entry refuses any other pair (built_pair).
 
 #pragma once
+
+#if !defined(MINSUM_ALGO) || !defined(MINSUM_PRE)
+#error "build one (algorithm, minclamp) pair: -DMINSUM_ALGO=0-3 -DMINSUM_PRE=0|1"
+#endif
 
 namespace minsum {
 
 enum Algo { MS = 0, OMS = 1, NMS = 2, NMS2 = 3 };
 
+// the constants of the check-node update, run-time values of the spec
 struct CnSpec {
-  int algo, pre, offset, nms_f, nms_f2, sat_var, sat_msg;
+  int offset, nms_f, nms_f2, sat_var, sat_msg;
 };
 
-__device__ __forceinline__ int clampi(int x, int s) { return min(max(x, -s), s); }
-
-// the magnitude the two-min sees
-__device__ __forceinline__ int cn_abs(int c, const CnSpec& s) {
-  return s.pre ? abs(clampi(c, s.sat_msg)) : abs(c);
+// true for the pair this library was built for; the C entries check the
+// pair they are passed with it
+__host__ inline bool built_pair(int algo, int minclamp_pre) {
+  return algo == MINSUM_ALGO && minclamp_pre == MINSUM_PRE;
 }
+
+__device__ __forceinline__ int clampi(int x, int s) { return min(max(x, -s), s); }
 
 // edge j of a check; min1 and min2 start at 0 and sat_var + 1
 __device__ __forceinline__ void two_min(int j, int a, int& min1, int& min2) {
@@ -39,48 +51,14 @@ __device__ __forceinline__ void two_min(int j, int a, int& min1, int& min2) {
   }
 }
 
-// message magnitudes: f1 for the min edge, f2 for the others
-__device__ __forceinline__ void cn_f(int min1, int min2, const CnSpec& s,
-                                     int& f1, int& f2) {
-  switch (s.algo) {
-    case MS:
-      f1 = min(min2, s.sat_msg);
-      f2 = min(min1, s.sat_msg);
-      break;
-    case OMS:
-      f1 = min(max(min2 - s.offset, 0), s.sat_msg);
-      f2 = min(max(min1 - s.offset, 0), s.sat_msg);
-      break;
-    case NMS:
-      f1 = (min2 * s.nms_f) >> 5;
-      f2 = (min1 * s.nms_f) >> 5;
-      break;
-    default:  // 2NMS
-      f1 = (min2 * s.nms_f2) >> 5;
-      f2 = (min1 * s.nms_f) >> 5;
-      break;
-  }
-}
-
-// the new c2v message of the edge with contribution c
-__device__ __forceinline__ int cn_msg(int c, int parity, int min1, int f1,
-                                      int f2, const CnSpec& s) {
-  const int mag = (cn_abs(c, s) == min1) ? f1 : f2;
-  const int m = (parity ^ (c > 0)) ? mag : -mag;
-  return s.pre ? clampi(m, s.sat_msg) : m;
-}
-
-// Compile-time forms of cn_abs, cn_f and cn_msg (gather_minsum.cu,
-// streamed_minsum.cu; the run-time ones above serve layered_minsum.cu): the
-// algorithm and the minclamp placement are template parameters, so a kernel
-// built for one pair carries that pair's arithmetic alone, with no per-edge
-// select; the constants (offset, nms_f, nms_f2, sat_var, sat_msg) stay
-// run-time fields of the CnSpec, whose algo and pre these forms ignore.
-// Under 'pre', cn_f<ALGO, true> clamps f1 and f2 to +-sat_msg and
-// cn_msg<ALGO, true> does not clamp the message: the clamp is odd
-// (clampi(-x, s) == -clampi(x, s)), so the pair computes what cn_f and
-// cn_msg compute.  For MS and OMS f1 and f2 already lie in [0, sat_msg],
-// so there the clamp is left out.
+// The magnitude the two-min sees (cn_abs), the message magnitudes f1 for
+// the min edge and f2 for the others (cn_f) and the new c2v message of an
+// edge (cn_msg), for the pair (ALGO, PRE).  Under 'pre', cn_f clamps f1
+// and f2 to +-sat_msg and cn_msg does not clamp the message: the clamp is
+// odd (clampi(-x, s) == -clampi(x, s)), so the pair computes the clamped
+// message above.  For MS and OMS f1 and f2 already lie in [0, sat_msg], so
+// there the clamp is left out.  These need sat_msg > 0, which the C entries
+// check.
 
 template <int ALGO, bool PRE>
 __device__ __forceinline__ int cn_abs(int c, const CnSpec& s) {

@@ -51,7 +51,7 @@
 //    in registers.
 //  * The algorithm and the minclamp placement are template parameters too
 //    (the compile-time forms of minsum_common.cuh), and a library is built
-//    for one pair (STREAMED_ALGO, STREAMED_PRE): a round carries that
+//    for one pair (MINSUM_ALGO, MINSUM_PRE): a round carries that
 //    pair's check-node arithmetic alone.  Each edge's magnitude is computed
 //    once, for the two-min and its message, and the parity is the sign bit
 //    of the XOR of the negated contributions, so each message's sign is
@@ -106,13 +106,6 @@
 #include <stdint.h>
 
 #include "minsum_common.cuh"
-
-// The (algorithm, minclamp) pair of this build: kernels/streamed.py::build
-// compiles one library a pair, with -DSTREAMED_ALGO=<Algo> and
-// -DSTREAMED_PRE=<0|1>, at the pair's first use.
-#if !defined(STREAMED_ALGO) || !defined(STREAMED_PRE)
-#error "build one (algorithm, minclamp) pair: -DSTREAMED_ALGO=0-3 -DSTREAMED_PRE=0|1"
-#endif
 
 namespace {
 
@@ -417,22 +410,17 @@ int streamed_minsum_launch(const void* llr, void* bits, void* app, void* msgs,
            static_cast<const int*>(n_checks), static_cast<const int*>(deg),
            static_cast<const int*>(vn), static_cast<const int*>(perm),
            n_layers, N, B, iters, early_term, static_cast<size_t>(n_edges),
-           CnSpec{algo, minclamp_pre, offset, nms_f, nms_f2, sat_var, sat_msg}};
-  if (B <= 0 || N <= 0 || n_layers <= 0 || n_edges <= 0 ||
-      n_edges * tile >= (1LL << 31) ||
+           CnSpec{offset, nms_f, nms_f2, sat_var, sat_msg}};
+  if (!built_pair(algo, minclamp_pre) || B <= 0 || N <= 0 || n_layers <= 0 ||
+      n_edges <= 0 || n_edges * tile >= (1LL << 31) ||
       static_cast<long long>(N) * tile >= (1LL << 31) ||
       sat_var <= 0 || sat_var > 127 || sat_msg <= 0 ||
       (!smem_app && app == nullptr))
     return cudaErrorInvalidValue;
-  // this library's pair alone: one dispatch a launch
-  switch (algo * 2 + minclamp_pre) {
-    case STREAMED_ALGO * 2 + STREAMED_PRE: break;
-    default: return cudaErrorInvalidValue;
-  }
   cudaError_t err = cudaMemsetAsync(iters_out, 0, sizeof(int), st);
   if (err != cudaSuccess) return err;
-  return launch_variant<STREAMED_ALGO, STREAMED_PRE>(p, tile, dmax, k,
-                                                     smem_app, st);
+  return launch_variant<MINSUM_ALGO, MINSUM_PRE>(p, tile, dmax, k, smem_app,
+                                                 st);
 }
 
 const char* streamed_minsum_error_string(int err) {

@@ -1,30 +1,40 @@
 """What the kernel wrappers share: building a ``csrc/`` source into a
-shared library at first use, checking a decoder's input, the cost
-model by which the gather and streamed kernels pick a variant, and the
-lookup by which each decoder computes its pick once a batch size and
-card.
+shared library at first use and loading it (``load``), checking a
+decoder's input, the cost model by which the gather and streamed kernels
+pick a variant, the lookup by which each decoder computes its pick once a
+batch size and card, and the body of a decode call (``make_decode``).
 
 A library is compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a``
 into a build directory (``ldpcgputegra_tpu_torch/_build/``, git-ignored),
 from this checkout's sources only.  Its file name carries a hash of the
-source and of every header in ``csrc/``, so an edited source or header is
-rebuilt.  Nothing here needs nvcc or CUDA until ``build_library`` runs.
-``library_path`` and ``cached_build`` are that cache alone; the native
-host library (``golden/native.py``) builds through them with g++.
+source, of every header in ``csrc/`` and of its ``-D`` flags, so an edited
+source or header is rebuilt.  Nothing here needs nvcc or CUDA until
+``build_library`` runs.  ``library_path`` and ``cached_build`` are that
+cache alone; the native host library (``golden/native.py``) builds through
+them with g++.
+
+Every decode kernel (K1 ``layered_minsum``, K2 ``streamed_minsum``, the
+gather kernel ``gather_minsum``) is built one library a (algorithm,
+minclamp) pair (``PAIRS``, ``defines``): its source compiles that pair's
+check-node arithmetic alone, and its C entry refuses any other pair.  A
+decoder loads its spec's pair (``pair``) at its first call on the card.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import time
-from typing import Callable, Iterable, Sequence
+from typing import Callable, Iterable, Optional, Sequence
 
 import torch
 
+from ..ops.layered import make_layered_decoder
 from ..utils.profiling import span
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,7 +45,10 @@ SM_SMEM = 233472  # shared memory of one SM, of which each CTA holds
 CTA_SMEM_RESERVED = 1024  # this much more than it asks for
 SM_THREADS = 2048  # resident threads an SM
 SMS_H100 = 132  # an H100 SXM's SMs: the picks' count where no card is read
-ALGO ={"MS": 0, "OMS": 1, "NMS": 2, "2NMS": 3}  # csrc/minsum_common.cuh
+ALGO = {"MS": 0, "OMS": 1, "NMS": 2, "2NMS": 3}  # csrc/minsum_common.cuh
+# the (algorithm, minclamp) pairs, one library each for every decode kernel
+PAIRS = tuple((a, m) for a in ALGO for m in ("pre", "post"))
+DMAXES = (8, 16, 32)  # the decode kernels' unrolled contribution arrays
 
 # Integer operations that one min-sum edge update needs, whichever kernel
 # runs it (OMS with minclamp 'pre', csrc/minsum_common.cuh): the
@@ -45,6 +58,31 @@ ALGO ={"MS": 0, "OMS": 1, "NMS": 2, "2NMS": 3}  # csrc/minsum_common.cuh
 # Addressing, loads and stores are not counted, nor the per-check offset.
 # chip_smoke.py's bound divides edge updates x this by the int32 rate.
 OPS_PER_EDGE = 21
+
+
+def pair(spec) -> tuple[str, str]:
+    """The (algorithm, minclamp) pair whose library decodes ``spec``: the
+    kernels read any minclamp but 'pre' as 'post', as the plain version
+    does."""
+    return spec.algo, "pre" if spec.minclamp == "pre" else "post"
+
+
+def defines(algo: str = "OMS", minclamp: str = "pre") -> list[str]:
+    """The nvcc flags of a decode library of one (algorithm, minclamp)
+    pair, which ``csrc/minsum_common.cuh`` requires: the source compiles
+    that pair's check-node arithmetic alone."""
+    if algo not in ALGO or minclamp not in ("pre", "post"):
+        raise ValueError(f"no build for {algo!r} with minclamp {minclamp!r}")
+    return [f"-DMINSUM_ALGO={ALGO[algo]}",
+            f"-DMINSUM_PRE={int(minclamp == 'pre')}"]
+
+
+def dmax(groups) -> int:
+    """The smallest unrolled contribution array that holds the degree of
+    every one of ``groups`` (a code's layers or degree classes); 0 when
+    none does."""
+    deg = max(g.deg for g in groups)
+    return next((d for d in DMAXES if d >= deg), 0)
 
 
 def ctas_per_sm(threads: int, smem: int, reg_ctas: int) -> int:
@@ -177,6 +215,106 @@ def build_library(source: str, build_dir: str,
 
     return cached_build(library_path(name, files, defines, build_dir),
                         compile_to)
+
+
+# the loaded libraries by (source, pair); pair None: built without defines
+_loaded: dict[tuple[str, Optional[tuple[str, str]]], ctypes.CDLL] = {}
+
+
+def load(source: str, functions: dict,
+         pair: Optional[tuple[str, str]] = None) -> ctypes.CDLL:
+    """The library of ``source``, built for ``pair`` (an (algorithm,
+    minclamp); None for a source without one, the probes) and loaded at its
+    first use, with ``argtypes`` and ``restype`` set from ``functions``
+    (name -> (argtypes, restype)); kept for the calls after it."""
+    key = (source, pair)
+    if key not in _loaded:
+        flags = defines(*pair) if pair is not None else ()
+        lib = ctypes.CDLL(build_library(source, BUILD_DIR, flags)["path"])
+        for name, (argtypes, restype) in functions.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = list(argtypes), restype
+        _loaded[key] = lib
+    return _loaded[key]
+
+
+# the C entries' last arguments, the same in every decode kernel: algo,
+# minclamp_pre, iters, early_term, offset, nms_f, nms_f2, sat_var, sat_msg,
+# stream
+SPEC_ARGTYPES = [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+def decode_functions(name: str, argtypes: Sequence) -> dict:
+    """The C functions of the decode kernel ``name`` for ``load``: its
+    launch, whose arguments are ``argtypes`` then ``SPEC_ARGTYPES``, and
+    its error string."""
+    return {f"{name}_launch": ([*argtypes, *SPEC_ARGTYPES], ctypes.c_int),
+            f"{name}_error_string": ([ctypes.c_int], ctypes.c_char_p)}
+
+
+def make_decode(code, spec, name: str, argtypes: Sequence, launches: dict,
+                tables: Callable, pick_tile: Callable[[], Callable],
+                pick_args: tuple, launch: Callable,
+                plain: Optional[Callable] = None) -> Callable:
+    """``decode(llr[B, N] int8)``, the body of every decode kernel's
+    wrapper: the kernel ``name`` (source ``csrc/{name}.cu``, C entries
+    ``{name}_launch`` and ``{name}_error_string``) on a CUDA tensor, the
+    plain version on a CPU tensor, built on the first such call
+    (``plain()``, by default ``ops/layered.py::make_layered_decoder``).
+
+    ``llr`` is checked (``check_llr``), and the call records the span
+    ``ldpc.decode`` (its frames).  On the card: ``tables(device)`` and the
+    SM count are read once a card; the variant is ``cached_pick`` of
+    ``pick_tile()``, the module's ``pick_tile`` as it reads at the call (a
+    replacement, as ``bench/tiles.py`` forces a variant, is a key of its
+    own), with ``pick_args`` after (code, B, sms); ``launch(t, llr, v)``
+    allocates the outputs and scratch and returns (the C entry's arguments
+    before the spec's, the outputs).  The entry of ``pair(spec)``'s library
+    then runs on PyTorch's current stream, with no host synchronisation;
+    an error it returns raises ``RuntimeError``, and ``launches[name]``
+    counts each launch.  Returns the outputs."""
+    spec_args = (ALGO[spec.algo], int(spec.minclamp == "pre"), spec.iters,
+                 int(spec.early_term), spec.offset, spec.nms_f, spec.nms_f2,
+                 spec.sat_var, spec.sat_msg)
+    # the tables and the SM count, read on the first call per card
+    per_card: dict[torch.device, tuple[dict, int]] = {}
+    # the picks by (pick_tile, B, SMs) (cached_pick)
+    picks: dict[tuple, object] = {}
+
+    @functools.cache
+    def on_cpu():
+        return plain() if plain else make_layered_decoder(code, spec, "cpu")
+
+    @functools.cache
+    def entries():
+        lib = load(os.path.join(CSRC, f"{name}.cu"),
+                   decode_functions(name, argtypes), pair(spec))
+        return (getattr(lib, f"{name}_launch"),
+                getattr(lib, f"{name}_error_string"))
+
+    def decode(llr: torch.Tensor):
+        check_llr(llr, code.N)
+        with span("decode", count=llr.shape[0]):
+            if llr.device.type == "cpu":
+                return on_cpu()(llr)
+            entry, error_string = entries()
+            dev = llr.device
+            if dev not in per_card:
+                per_card[dev] = (tables(dev), sm_count(dev))
+            t, sms = per_card[dev]
+            v = cached_pick(picks, pick_tile(), code, llr.shape[0], sms,
+                            *pick_args)
+            args, out = launch(t, llr, v)
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                err = entry(*args, *spec_args, stream)
+            if err != 0:
+                msg = error_string(err).decode()
+                raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+            launches[name] += 1
+            return out
+
+    return decode
 
 
 def check_llr(llr, N: int) -> None:

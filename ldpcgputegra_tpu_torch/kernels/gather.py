@@ -18,17 +18,17 @@ and the minclamp placement are compiled in, one build each.
 ``pick_tile`` picks the variant from the code, the batch and the card's
 SM count; ``smem_bytes`` and ``ctas_per_sm`` charge the variant launched.
 
-The kernel is compiled at first use (``kernels/_lib.py``) and loaded with
-ctypes.  Importing this module needs neither nvcc nor CUDA.  On a CPU
-tensor the decoder runs the plain version
+The kernel is compiled (``kernels/_lib.py``) into one library for each
+(algorithm, minclamp) pair, at that pair's first use (``build``), and
+loaded with ctypes.  Importing this module needs neither nvcc nor CUDA.
+On a CPU tensor the decoder runs the plain version
 (``ops/layered.py::make_layered_decoder``); on a CUDA tensor it launches
-the kernel or raises.
+the kernel or raises (``_lib.make_decode``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 from typing import NamedTuple, Optional, Sequence
 
@@ -36,13 +36,7 @@ import torch
 
 from ..codes.code import LdpcCode
 from ..codes.convert import edge_tables, layer_shapes
-from ..ops.layered import (
-    LayeredSpec,
-    is_qc_view,
-    make_layered_decoder,
-    unsupported_reason,
-)
-from ..utils.profiling import span
+from ..ops.layered import LayeredSpec, is_qc_view, unsupported_reason
 from . import _lib
 
 __all__ = ["make_gather_decoder", "kernel_unsupported_reason", "pick_tile",
@@ -59,8 +53,9 @@ REPLACES = ("ldpcgputegra_tpu/kernels/pallas_gather.py:1215 (K3 _build_kernel), 
 NTHREADS = 512  # threads per CTA
 W = 4  # codewords a thread, packed in one 32-bit access
 TILES = (32, 16, 8, 4)  # codewords per CTA
-DMAXES = (8, 16, 32)  # unrolled contribution array lengths
 SMS_H100 = _lib.SMS_H100
+# the C entry's arguments before the spec's (_lib.SPEC_ARGTYPES)
+ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
 
 
 class Variant(NamedTuple):
@@ -93,15 +88,6 @@ SHARE = 1.0
 # the kernel, and nowhere else.
 launches = {"gather_minsum": 0}
 
-_lib_handle: Optional[ctypes.CDLL] = None
-
-
-def _dmax(code: LdpcCode) -> int:
-    """The smallest unrolled contribution array that holds every check
-    degree; 0 when none does."""
-    deg = max(c.deg for c in code.classes)
-    return next((d for d in DMAXES if d >= deg), 0)
-
 
 def smem_bytes(code: LdpcCode, v: Variant) -> int:
     """Dynamic shared memory of one CTA: the [N][tile] int8 APP tile and
@@ -119,7 +105,7 @@ def ctas_per_sm(code: LdpcCode, v: Variant) -> int:
 def variants(code: LdpcCode) -> list[Variant]:
     """The builds that take this code: its DMAX, and an APP tile that fits
     shared memory."""
-    return [v for v in BUILDS.get(_dmax(code), ())
+    return [v for v in BUILDS.get(_lib.dmax(code.classes), ())
             if smem_bytes(code, v) <= _lib.SMEM_MAX]
 
 
@@ -146,23 +132,13 @@ def pick_tile(code: LdpcCode, B: int, sms: int = SMS_H100,
         prefer=lambda v: -v.tile)
 
 
-def build() -> dict:
-    """Compile the kernel library if this source has not been built yet;
-    ``{"path", "seconds", "log"}`` (see ``_lib.build_library``)."""
-    return _lib.build_library(SOURCE, BUILD_DIR)
-
-
-def _library() -> ctypes.CDLL:
-    global _lib_handle
-    if _lib_handle is None:
-        lib = ctypes.CDLL(build()["path"])
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gather_minsum_launch.argtypes = [p] * 8 + [i] * 16 + [p]
-        lib.gather_minsum_launch.restype = i
-        lib.gather_minsum_error_string.argtypes = [i]
-        lib.gather_minsum_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
+def build(algo: str = "OMS", minclamp: str = "pre",
+          build_dir: Optional[str] = None) -> dict:
+    """Compile the library of one (algorithm, minclamp) pair if this source
+    has not been built for it yet; ``{"path", "seconds", "log"}`` (see
+    ``_lib.build_library``)."""
+    return _lib.build_library(SOURCE, build_dir or BUILD_DIR,
+                              _lib.defines(algo, minclamp))
 
 
 def kernel_unsupported_reason(code: LdpcCode, spec: LayeredSpec):
@@ -176,10 +152,11 @@ def kernel_unsupported_reason(code: LdpcCode, spec: LayeredSpec):
         return (f"{code.name}: a QC view (col_perm, deficient circulants, "
                 "sub-pass layers), which this kernel does not take (the "
                 "streamed kernel, kernels/streamed.py, does)")
-    if _dmax(code) == 0:
-        return f"{code.name}: check degree above {DMAXES[-1]}"
+    dmax = _lib.dmax(code.classes)
+    if dmax == 0:
+        return f"{code.name}: check degree above {_lib.DMAXES[-1]}"
     if not variants(code):
-        smallest = min(BUILDS[_dmax(code)], key=lambda v: v.tile)
+        smallest = min(BUILDS[dmax], key=lambda v: v.tile)
         return (f"{code.name}: a {smallest.tile}-codeword APP tile "
                 f"({smem_bytes(code, smallest)} B) does not fit shared "
                 "memory")
@@ -192,67 +169,34 @@ def make_gather_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
     ``pick_tile`` picks for each call's batch (computed once a batch size
     and card, ``_lib.cached_pick``).
 
-    On a CUDA tensor the decoder launches the kernel on PyTorch's current
-    stream, with no host synchronisation; ``iters_used`` is a 0-d int32
-    tensor on the card.  On a CPU tensor it runs the plain version, built
-    on the first such call.
-    While a profiler runs, each call records the span ``ldpc.decode``
-    (its frames) and, on the card, ``ldpc.decode.pick`` around the
-    variant's pick, count 1 where it was computed and 0 where it was
-    looked up (``utils/profiling.py``).
+    On a CUDA tensor the decoder launches the kernel (``_lib.make_decode``:
+    the current stream, no host synchronisation, the spans ``ldpc.decode``
+    and ``ldpc.decode.pick``); ``iters_used`` is a 0-d int32 tensor on the
+    card.  On a CPU tensor it runs the plain version.
     """
     if spec.algo not in _lib.ALGO:
         raise ValueError(f"unknown algo {spec.algo!r}")
     why = kernel_unsupported_reason(code, spec)
     if why is not None:
         raise NotImplementedError(why)
-    dmax = _dmax(code)
-    shapes = layer_shapes(code, spec.schedule)
-    # the tables and the SM count, read on the first call per card
-    tables: dict[torch.device, tuple[dict, int]] = {}
-    # the picks by (pick_tile, B, SMs) (_lib.cached_pick)
-    picks: dict[tuple, Variant] = {}
+    dmax = _lib.dmax(code.classes)
 
-    @functools.cache
-    def plain():
-        return make_layered_decoder(code, spec, "cpu")
+    def launch(t: dict, llr: torch.Tensor, v: Variant):
+        B, dev = llr.shape[0], llr.device
+        n_edges = int(t["vn"].numel())
+        bits = torch.empty((B, code.N), dtype=torch.uint8, device=dev)
+        msgs = torch.empty((-(-B // v.tile), n_edges, v.tile),
+                           dtype=torch.int8, device=dev)
+        iters = torch.empty((), dtype=torch.int32, device=dev)
+        return (llr.data_ptr(), bits.data_ptr(), msgs.data_ptr(),
+                iters.data_ptr(), t["row_ptr"].data_ptr(),
+                t["n_checks"].data_ptr(), t["deg"].data_ptr(),
+                t["vn"].data_ptr(), int(t["deg"].numel()), n_edges, code.N,
+                B, v.tile, v.k, dmax), (bits, iters)
 
-    def decode(llr: torch.Tensor):
-        _lib.check_llr(llr, code.N)
-        with span("decode", count=llr.shape[0]):
-            if llr.device.type == "cpu":
-                return plain()(llr)
-            lib = _library()
-            dev = llr.device
-            if dev not in tables:
-                tables[dev] = (edge_tables(code, spec, dev, wide=False),
-                               _lib.sm_count(dev))
-            t, sms = tables[dev]
-            B = llr.shape[0]
-            v = _lib.cached_pick(picks, pick_tile, code, B, sms,
-                                 spec.schedule, shapes)
-            n_edges = int(t["vn"].numel())
-            bits = torch.empty((B, code.N), dtype=torch.uint8, device=dev)
-            msgs = torch.empty((-(-B // v.tile), n_edges, v.tile),
-                               dtype=torch.int8, device=dev)
-            iters = torch.empty((), dtype=torch.int32, device=dev)
-            with torch.cuda.device(dev):
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                err = lib.gather_minsum_launch(
-                    llr.data_ptr(), bits.data_ptr(), msgs.data_ptr(),
-                    iters.data_ptr(), t["row_ptr"].data_ptr(),
-                    t["n_checks"].data_ptr(), t["deg"].data_ptr(),
-                    t["vn"].data_ptr(), int(t["deg"].numel()), n_edges, code.N,
-                    B, v.tile, v.k, dmax, _lib.ALGO[spec.algo],
-                    int(spec.minclamp == "pre"), spec.iters,
-                    int(spec.early_term), spec.offset, spec.nms_f, spec.nms_f2,
-                    spec.sat_var, spec.sat_msg, stream,
-                )
-            if err != 0:
-                msg = lib.gather_minsum_error_string(err).decode()
-                raise RuntimeError(
-                    f"gather_minsum launch failed: {msg} ({err})")
-            launches["gather_minsum"] += 1
-            return bits, iters
-
-    return decode
+    return _lib.make_decode(
+        code, spec, "gather_minsum", ARGTYPES, launches,
+        tables=lambda dev: edge_tables(code, spec, dev, wide=False),
+        pick_tile=lambda: pick_tile,
+        pick_args=(spec.schedule, layer_shapes(code, spec.schedule)),
+        launch=launch)

@@ -15,9 +15,10 @@ fastest.  ``pick_tile`` picks the tile from the batch and the
 card's SM count, the fewest rounds for the card's CTAs, and
 ``smem_bytes`` / ``ctas_per_sm`` charge the variant launched.
 
-The kernel is compiled at first use (``kernels/_lib.py``), from this
-checkout's sources only, and loaded with ctypes.  Importing this module
-needs neither nvcc nor CUDA.
+The kernel is compiled (``kernels/_lib.py``), from this checkout's
+sources only, into one library for each (algorithm, minclamp) pair, at
+that pair's first use (``build``), and loaded with ctypes.  Importing this
+module needs neither nvcc nor CUDA.
 
 With ``emit_mask`` the kernel also writes ``ok[B]``, the true syndrome of
 each output codeword (``pallas_layered.py``'s ``syndrome_pass``), from one
@@ -27,13 +28,12 @@ of two-phase early termination (``decoder/twophase.py``).
 On a CPU tensor the decoder runs the plain version
 (``ops/layered.py::make_layered_decoder``, then
 ``decoder/twophase.py::syndrome_fn`` for the mask); on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises (``_lib.make_decode``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 from typing import Optional
 
@@ -49,7 +49,6 @@ from ..ops.layered import (
     make_layered_decoder,
     unsupported_reason,
 )
-from ..utils.profiling import span
 from . import _lib
 
 __all__ = ["make_cuda_decoder", "cuda_supported", "kernel_unsupported_reason",
@@ -63,26 +62,18 @@ REPLACES = "ldpcgputegra_tpu/kernels/pallas_layered.py:139"  # _build_kernel
 # mirrored from csrc/layered_minsum.cu
 NTHREADS = 512  # threads per CTA
 TILES = (32, 16, 8, 4)  # codewords per CTA
-DMAXES = (8, 16, 32)  # unrolled contribution array lengths
+# the C entry's arguments before the spec's (_lib.SPEC_ARGTYPES)
+ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
 
 # Kernel launches in this process, by kernel name: the decoder adds one
 # where it launches the kernel, and nowhere else.
 launches = {"layered_minsum": 0}
 
-_lib_handle: Optional[ctypes.CDLL] = None
-
-
-def _dmax(code: LdpcCode) -> int:
-    """The smallest unrolled contribution array that holds every block-row's
-    degree; 0 when none does."""
-    deg = max(lay.deg for lay in code.layers)
-    return next((d for d in DMAXES if d >= deg), 0)
-
 
 def pack(code: LdpcCode) -> int:
     """Codewords a thread holds: 4 packed in one 32-bit access at DMAX 8,
     1 at DMAX 16 and 32."""
-    return 4 if _dmax(code) == 8 else 1
+    return 4 if _lib.dmax(code.layers) == 8 else 1
 
 
 def smem_bytes(code: LdpcCode, tile: int) -> int:
@@ -123,23 +114,13 @@ def pick_tile(code: LdpcCode, B: int, sms: int = _lib.SMS_H100) -> int:
     return best
 
 
-def build() -> dict:
-    """Compile the kernel library if this source has not been built yet;
-    ``{"path", "seconds", "log"}`` (see ``_lib.build_library``)."""
-    return _lib.build_library(SOURCE, BUILD_DIR)
-
-
-def _library() -> ctypes.CDLL:
-    global _lib_handle
-    if _lib_handle is None:
-        lib = ctypes.CDLL(build()["path"])
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.layered_minsum_launch.argtypes = [p] * 8 + [i] * 16 + [p]
-        lib.layered_minsum_launch.restype = i
-        lib.layered_minsum_error_string.argtypes = [i]
-        lib.layered_minsum_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
+def build(algo: str = "OMS", minclamp: str = "pre",
+          build_dir: Optional[str] = None) -> dict:
+    """Compile the library of one (algorithm, minclamp) pair if this source
+    has not been built for it yet; ``{"path", "seconds", "log"}`` (see
+    ``_lib.build_library``)."""
+    return _lib.build_library(SOURCE, build_dir or BUILD_DIR,
+                              _lib.defines(algo, minclamp))
 
 
 def kernel_unsupported_reason(code: LdpcCode, spec: LayeredSpec):
@@ -159,8 +140,8 @@ def kernel_unsupported_reason(code: LdpcCode, spec: LayeredSpec):
         return (f"{code.name}: the {spec.schedule} schedule gives non-QC "
                 "layers, which this kernel does not walk (the gather kernel, "
                 "kernels/gather.py, does)")
-    if _dmax(code) == 0:
-        return f"{code.name}: check degree above {DMAXES[-1]}"
+    if _lib.dmax(code.layers) == 0:
+        return f"{code.name}: check degree above {_lib.DMAXES[-1]}"
     if smem_bytes(code, TILES[-1]) > _lib.SMEM_MAX:
         return (f"{code.name}: a {TILES[-1]}-codeword APP tile "
                 f"({smem_bytes(code, TILES[-1])} B) does not fit shared "
@@ -182,14 +163,10 @@ def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec(),
     iters_used, ok[B] bool)``, ``ok`` true where the output satisfies every
     check (not with ``spec.early_term``, as in the JAX package).
 
-    On a CUDA tensor it launches the kernel on PyTorch's current stream,
-    with no host synchronisation; ``iters_used`` is a 0-d int32 tensor on
-    the card.  On a CPU tensor it runs the plain version, built on the
-    first such call.
-    While a profiler runs, each call records the span ``ldpc.decode``
-    (its frames) and, on the card, ``ldpc.decode.pick`` around the
-    tile's pick, count 1 where it was computed and 0 where it was looked
-    up (``utils/profiling.py``).
+    On a CUDA tensor the decoder launches the kernel (``_lib.make_decode``:
+    the current stream, no host synchronisation, the spans ``ldpc.decode``
+    and ``ldpc.decode.pick``); ``iters_used`` is a 0-d int32 tensor on the
+    card.  On a CPU tensor it runs the plain version.
     """
     if spec.algo not in _lib.ALGO:
         raise ValueError(f"unknown algo {spec.algo!r}")
@@ -199,59 +176,38 @@ def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec(),
     why = kernel_unsupported_reason(code, spec)
     if why is not None:
         raise NotImplementedError(why)
-    dmax = _dmax(code)
-    # the tables and the SM count, read on the first call per card
-    tables: dict[torch.device, tuple[dict, int]] = {}
-    # the tiles by (pick_tile, B, SMs) (_lib.cached_pick)
-    picks: dict[tuple, int] = {}
+    dmax = _lib.dmax(code.layers)
 
-    @functools.cache
-    def plain():
-        return make_layered_decoder(code, spec, "cpu")
+    def launch(t: dict, llr: torch.Tensor, tile: int):
+        B, dev = llr.shape[0], llr.device
+        n_edges = int(t["cols"].numel())
+        bits = torch.empty((B, code.N), dtype=torch.uint8, device=dev)
+        msgs = torch.empty((-(-B // tile), code.Z * n_edges, tile),
+                           dtype=torch.int8, device=dev)
+        iters = torch.empty((), dtype=torch.int32, device=dev)
+        if not emit_mask:
+            ok, out = None, (bits, iters)
+        else:
+            ok = torch.empty(B, dtype=torch.bool, device=dev)
+            out = (bits, iters, ok)
+        return (llr.data_ptr(), bits.data_ptr(), msgs.data_ptr(),
+                iters.data_ptr(), None if ok is None else ok.data_ptr(),
+                t["row_ptr"].data_ptr(), t["cols"].data_ptr(),
+                t["shifts"].data_ptr(), len(code.layers), n_edges, code.N,
+                code.Z, B, tile, dmax), out
 
-    @functools.cache
-    def plain_ok():
-        return syndrome_fn(code, "cpu")
+    def plain_with_mask():
+        dec = make_layered_decoder(code, spec, "cpu")
+        syndrome = syndrome_fn(code, "cpu")
 
-    def decode(llr: torch.Tensor):
-        _lib.check_llr(llr, code.N)
-        with span("decode", count=llr.shape[0]):
-            if llr.device.type == "cpu":
-                bits, iters = plain()(llr)
-                if emit_mask:
-                    return bits, iters, plain_ok()(bits)
-                return bits, iters
-            lib = _library()
-            dev = llr.device
-            if dev not in tables:
-                tables[dev] = (qc_tables(code, dev), _lib.sm_count(dev))
-            t, sms = tables[dev]
-            B = llr.shape[0]
-            tile = _lib.cached_pick(picks, pick_tile, code, B, sms)
-            n_edges = int(t["cols"].numel())
-            bits = torch.empty((B, code.N), dtype=torch.uint8, device=dev)
-            msgs = torch.empty((-(-B // tile), code.Z * n_edges, tile),
-                               dtype=torch.int8, device=dev)
-            iters = torch.empty((), dtype=torch.int32, device=dev)
-            ok = (torch.empty(B, dtype=torch.bool, device=dev) if emit_mask
-                  else None)
-            with torch.cuda.device(dev):
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                err = lib.layered_minsum_launch(
-                    llr.data_ptr(), bits.data_ptr(), msgs.data_ptr(),
-                    iters.data_ptr(), ok.data_ptr() if emit_mask else None,
-                    t["row_ptr"].data_ptr(),
-                    t["cols"].data_ptr(), t["shifts"].data_ptr(),
-                    len(code.layers), n_edges, code.N, code.Z, B, tile, dmax,
-                    _lib.ALGO[spec.algo], int(spec.minclamp == "pre"),
-                    spec.iters, int(spec.early_term), spec.offset, spec.nms_f,
-                    spec.nms_f2, spec.sat_var, spec.sat_msg, stream,
-                )
-            if err != 0:
-                msg = lib.layered_minsum_error_string(err).decode()
-                raise RuntimeError(
-                    f"layered_minsum launch failed: {msg} ({err})")
-            launches["layered_minsum"] += 1
-            return (bits, iters, ok) if emit_mask else (bits, iters)
+        def decode(llr):
+            bits, iters = dec(llr)
+            return bits, iters, syndrome(bits)
 
-    return decode
+        return decode
+
+    return _lib.make_decode(
+        code, spec, "layered_minsum", ARGTYPES, launches,
+        tables=lambda dev: qc_tables(code, dev), pick_tile=lambda: pick_tile,
+        pick_args=(), launch=launch,
+        plain=plain_with_mask if emit_mask else None)

@@ -24,13 +24,12 @@ The kernel is compiled (``kernels/_lib.py``) into one library for each
 loaded with ctypes.  Importing this module needs neither nvcc nor CUDA.
 On a CPU tensor the decoder runs the plain version
 (``ops/layered.py::make_layered_decoder``); on a CUDA tensor it launches
-the kernel or raises.
+the kernel or raises (``_lib.make_decode``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 from typing import NamedTuple, Optional, Sequence
 
@@ -38,14 +37,12 @@ import torch
 
 from ..codes.code import LdpcCode
 from ..codes.convert import edge_tables, layer_shapes
-from ..ops.layered import LayeredSpec, make_layered_decoder, unsupported_reason
-from ..utils.profiling import span
+from ..ops.layered import LayeredSpec, unsupported_reason
 from . import _lib
 
 __all__ = ["make_streamed_decoder", "kernel_unsupported_reason", "pick_tile",
            "Variant", "variants", "smem_bytes", "ctas_per_sm",
-           "layer_shapes", "build", "defines", "PAIRS", "launches",
-           "SOURCE", "REPLACES"]
+           "layer_shapes", "build", "launches", "SOURCE", "REPLACES"]
 
 SOURCE = os.path.join(_lib.CSRC, "streamed_minsum.cu")
 BUILD_DIR = _lib.BUILD_DIR
@@ -55,12 +52,12 @@ REPLACES = "ldpcgputegra_tpu/kernels/pallas_streamed.py:73"  # _build_streamed_k
 NTHREADS = 512  # threads per CTA
 TILES = (32, 16, 8, 4, 2, 1)  # codewords per CTA, APP in device memory
 SMEM_TILES = (8, 4, 2, 1)  # codewords per CTA, APP in shared memory
-DMAXES = (8, 16, 32)  # unrolled contribution array lengths
 LANES = (1, 2, 4)  # lanes a check; above 1 at DMAX 16 and 32, tiles <= 8
 APP_PAD = 16  # shared memory before the APP, for the pinned edges
 SMS_H100 = _lib.SMS_H100
-# the (algorithm, minclamp) pairs, one library each
-PAIRS = tuple((a, m) for a in _lib.ALGO for m in ("pre", "post"))
+# the C entry's arguments before the spec's (_lib.SPEC_ARGTYPES)
+ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_longlong]
+            + [ctypes.c_int] * 6)
 
 # The pick's model of a check round, in units of a round with the APP in
 # shared memory (one device-memory trip, for the VN ids and messages): a
@@ -76,9 +73,6 @@ EDGE_COST = 0.125
 # the kernel, and nowhere else.
 launches = {"streamed_minsum": 0}
 
-# the loaded libraries by (algorithm, minclamp)
-_lib_handles: dict[tuple[str, str], ctypes.CDLL] = {}
-
 
 class Variant(NamedTuple):
     """One build of the kernel: where the APP lives ("smem" or "device"),
@@ -87,13 +81,6 @@ class Variant(NamedTuple):
     placement: str
     tile: int
     k: int
-
-
-def _dmax(code: LdpcCode) -> int:
-    """The smallest unrolled contribution array that holds every check
-    degree; 0 when none does."""
-    deg = max(lay.deg for lay in code.layers)
-    return next((d for d in DMAXES if d >= deg), 0)
 
 
 def smem_bytes(code: LdpcCode, v: Variant) -> int:
@@ -109,13 +96,13 @@ def ctas_per_sm(code: LdpcCode, v: Variant) -> int:
     DMAX / k contributions fit 64 registers a thread (the kernel's launch
     bounds), else one, as its shared memory allows."""
     return _lib.ctas_per_sm(NTHREADS, smem_bytes(code, v),
-                            2 if _dmax(code) // v.k <= 8 else 1)
+                            2 if _lib.dmax(code.layers) // v.k <= 8 else 1)
 
 
 def variants(code: LdpcCode) -> list[Variant]:
     """The built variants that take this code: its DMAX, and an APP that
     fits shared memory where it lives there."""
-    dmax = _dmax(code)
+    dmax = _lib.dmax(code.layers)
     out = []
     for placement, tiles in (("smem", SMEM_TILES), ("device", TILES)):
         for tile in tiles:
@@ -152,37 +139,13 @@ def pick_tile(code: LdpcCode, B: int, sms: int = SMS_H100,
         prefer=lambda v: (v.placement != "smem", v.tile))
 
 
-def defines(algo: str = "OMS", minclamp: str = "pre") -> list[str]:
-    """The nvcc flags of the library of one (algorithm, minclamp) pair: the
-    source compiles that pair's check-node arithmetic alone, and its C
-    entry refuses any other pair."""
-    if algo not in _lib.ALGO or minclamp not in ("pre", "post"):
-        raise ValueError(f"no build for {algo!r} with minclamp {minclamp!r}")
-    return [f"-DSTREAMED_ALGO={_lib.ALGO[algo]}",
-            f"-DSTREAMED_PRE={int(minclamp == 'pre')}"]
-
-
 def build(algo: str = "OMS", minclamp: str = "pre",
-          build_dir: str = BUILD_DIR) -> dict:
+          build_dir: Optional[str] = None) -> dict:
     """Compile the library of one (algorithm, minclamp) pair if this source
     has not been built for it yet; ``{"path", "seconds", "log"}`` (see
     ``_lib.build_library``)."""
-    return _lib.build_library(SOURCE, build_dir, defines(algo, minclamp))
-
-
-def _library(algo: str, minclamp: str) -> ctypes.CDLL:
-    """The library of the pair, built and loaded at its first use."""
-    key = (algo, minclamp)
-    if key not in _lib_handles:
-        lib = ctypes.CDLL(build(algo, minclamp)["path"])
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.streamed_minsum_launch.argtypes = (
-            [p] * 10 + [i, ctypes.c_longlong] + [i] * 15 + [p])
-        lib.streamed_minsum_launch.restype = i
-        lib.streamed_minsum_error_string.argtypes = [i]
-        lib.streamed_minsum_error_string.restype = ctypes.c_char_p
-        _lib_handles[key] = lib
-    return _lib_handles[key]
+    return _lib.build_library(SOURCE, build_dir or BUILD_DIR,
+                              _lib.defines(algo, minclamp))
 
 
 def kernel_unsupported_reason(code: LdpcCode, spec: LayeredSpec):
@@ -190,8 +153,8 @@ def kernel_unsupported_reason(code: LdpcCode, spec: LayeredSpec):
     why = unsupported_reason(code, spec)
     if why is not None:
         return why
-    if _dmax(code) == 0:
-        return f"{code.name}: check degree above {DMAXES[-1]}"
+    if _lib.dmax(code.layers) == 0:
+        return f"{code.name}: check degree above {_lib.DMAXES[-1]}"
     # the kernel reads the edges past a layer's degree as pinned edges,
     # which leave the two-min of two edges or more alone
     if min(d for _, d in layer_shapes(code, spec.schedule)) < 2:
@@ -207,75 +170,40 @@ def make_streamed_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec()):
     (``col_perm``, deficient circulants, sub-pass layers), whose callers
     keep the base code's column order.
 
-    On a CUDA tensor the decoder launches the kernel on PyTorch's current
-    stream, with no host synchronisation; ``iters_used`` is a 0-d int32
-    tensor on the card.  On a CPU tensor it runs the plain version, built
-    on the first such call.
-    While a profiler runs, each call records the span ``ldpc.decode``
-    (its frames) and, on the card, ``ldpc.decode.pick`` around the
-    variant's pick, count 1 where it was computed and 0 where it was
-    looked up (``utils/profiling.py``).
+    On a CUDA tensor the decoder launches the kernel (``_lib.make_decode``:
+    the current stream, no host synchronisation, the spans ``ldpc.decode``
+    and ``ldpc.decode.pick``); ``iters_used`` is a 0-d int32 tensor on the
+    card.  On a CPU tensor it runs the plain version.
     """
     if spec.algo not in _lib.ALGO:
         raise ValueError(f"unknown algo {spec.algo!r}")
     why = kernel_unsupported_reason(code, spec)
     if why is not None:
         raise NotImplementedError(why)
-    dmax = _dmax(code)
-    shapes = layer_shapes(code, spec.schedule)
-    # the library of the spec's pair (the kernel reads any minclamp but
-    # 'pre' as 'post', as the plain version does)
-    pair = (spec.algo, "pre" if spec.minclamp == "pre" else "post")
-    # the tables and the SM count, read on the first call per card
-    tables: dict[torch.device, tuple[dict, int]] = {}
-    # the picks by (pick_tile, B, SMs) (_lib.cached_pick)
-    picks: dict[tuple, Variant] = {}
+    dmax = _lib.dmax(code.layers)
 
-    @functools.cache
-    def plain():
-        return make_layered_decoder(code, spec, "cpu")
+    def launch(t: dict, llr: torch.Tensor, v: Variant):
+        B, dev = llr.shape[0], llr.device
+        n_tiles = -(-B // v.tile)
+        n_edges = int(t["vn"].numel())
+        bits = torch.empty((B, code.N), dtype=torch.uint8, device=dev)
+        app = (None if v.placement == "smem" else torch.empty(
+            (n_tiles, code.N, v.tile), dtype=torch.int8, device=dev))
+        msgs = torch.empty((n_tiles, n_edges, v.tile), dtype=torch.int8,
+                           device=dev)
+        iters = torch.empty((), dtype=torch.int32, device=dev)
+        perm = t["perm"].data_ptr() if t["perm"].numel() else None
+        return (llr.data_ptr(), bits.data_ptr(),
+                None if app is None else app.data_ptr(), msgs.data_ptr(),
+                iters.data_ptr(), t["row_ptr"].data_ptr(),
+                t["n_checks"].data_ptr(), t["deg"].data_ptr(),
+                t["vn"].data_ptr(), perm, int(t["deg"].numel()), n_edges,
+                code.N, B, v.tile, dmax, v.k,
+                int(v.placement == "smem")), (bits, iters)
 
-    def decode(llr: torch.Tensor):
-        _lib.check_llr(llr, code.N)
-        with span("decode", count=llr.shape[0]):
-            if llr.device.type == "cpu":
-                return plain()(llr)
-            lib = _library(*pair)
-            dev = llr.device
-            if dev not in tables:
-                tables[dev] = (edge_tables(code, spec, dev),
-                               _lib.sm_count(dev))
-            t, sms = tables[dev]
-            B = llr.shape[0]
-            v = _lib.cached_pick(picks, pick_tile, code, B, sms,
-                                 spec.schedule, shapes)
-            n_tiles = -(-B // v.tile)
-            n_edges = int(t["vn"].numel())
-            bits = torch.empty((B, code.N), dtype=torch.uint8, device=dev)
-            app = (None if v.placement == "smem" else torch.empty(
-                (n_tiles, code.N, v.tile), dtype=torch.int8, device=dev))
-            msgs = torch.empty((n_tiles, n_edges, v.tile), dtype=torch.int8,
-                               device=dev)
-            iters = torch.empty((), dtype=torch.int32, device=dev)
-            perm = t["perm"].data_ptr() if t["perm"].numel() else None
-            with torch.cuda.device(dev):
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                err = lib.streamed_minsum_launch(
-                    llr.data_ptr(), bits.data_ptr(),
-                    None if app is None else app.data_ptr(), msgs.data_ptr(),
-                    iters.data_ptr(), t["row_ptr"].data_ptr(),
-                    t["n_checks"].data_ptr(), t["deg"].data_ptr(),
-                    t["vn"].data_ptr(), perm, int(t["deg"].numel()), n_edges,
-                    code.N, B, v.tile, dmax, v.k, int(v.placement == "smem"),
-                    _lib.ALGO[spec.algo], int(spec.minclamp == "pre"),
-                    spec.iters, int(spec.early_term), spec.offset, spec.nms_f,
-                    spec.nms_f2, spec.sat_var, spec.sat_msg, stream,
-                )
-            if err != 0:
-                msg = lib.streamed_minsum_error_string(err).decode()
-                raise RuntimeError(
-                    f"streamed_minsum launch failed: {msg} ({err})")
-            launches["streamed_minsum"] += 1
-            return bits, iters
-
-    return decode
+    return _lib.make_decode(
+        code, spec, "streamed_minsum", ARGTYPES, launches,
+        tables=lambda dev: edge_tables(code, spec, dev),
+        pick_tile=lambda: pick_tile,
+        pick_args=(spec.schedule, layer_shapes(code, spec.schedule)),
+        launch=launch)

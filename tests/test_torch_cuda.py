@@ -73,12 +73,29 @@ def _spread_llrs(n, b, seed):
                    31).astype(np.int8)
 
 
+ALL_PAIRS = [(a, m) for a in ("MS", "OMS", "NMS", "2NMS")
+             for m in ("pre", "post")]
+
+
+@pytest.fixture(scope="module")
+def decode_pairs():
+    """The three decode kernels' libraries, one per (algorithm, minclamp)
+    pair each, built at once (one nvcc each) before the tests that launch
+    them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from concurrent.futures import ThreadPoolExecutor
+
+    builds = [(mod, am) for mod in (K, G, S) for am in _lib.PAIRS]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        return list(pool.map(lambda b: b[0].build(*b[1]), builds))
+
+
 @pytest.mark.parametrize("name", ["576x288", "1944x972", "2304x1152",
                                   "155x93", "1248x624"])
-@pytest.mark.parametrize("algo,minclamp", [("OMS", "pre"), ("MS", "post"),
-                                           ("NMS", "pre"), ("2NMS", "post")])
+@pytest.mark.parametrize("algo,minclamp", ALL_PAIRS)
 @pytest.mark.parametrize("et", [False, True])
-def test_kernel_matches_plain(dev, name, algo, minclamp, et):
+def test_kernel_matches_plain(dev, decode_pairs, name, algo, minclamp, et):
     code = load_code(name)
     spec = LayeredSpec(algo=algo, iters=6, minclamp=minclamp, early_term=et)
     llr = torch.from_numpy(_llrs(code.N, 257, seed=3, std=0.6)).to(dev)
@@ -88,7 +105,6 @@ def test_kernel_matches_plain(dev, name, algo, minclamp, et):
     assert int(ki) == int(pi)
 
 
-ALGOS = [("OMS", "pre"), ("MS", "post"), ("NMS", "pre"), ("2NMS", "post")]
 # (tile, code, batch) where the gather kernel's pick takes each tile on an
 # H100's 132 SMs
 GATHER_PICKS = [(32, "816x408", 8192), (16, "4000x2000", 4096),
@@ -97,9 +113,9 @@ GATHER_PICKS = [(32, "816x408", 8192), (16, "4000x2000", 4096),
 
 @pytest.mark.parametrize("tile", K.TILES)
 @pytest.mark.parametrize("name", ["1944x972", "randqc16"])
-@pytest.mark.parametrize("algo,minclamp", ALGOS)
+@pytest.mark.parametrize("algo,minclamp", ALL_PAIRS)
 @pytest.mark.parametrize("et", [False, True])
-def test_kernel_every_tile(dev, tile, name, algo, minclamp, et):
+def test_kernel_every_tile(dev, decode_pairs, tile, name, algo, minclamp, et):
     """Each build of the QC kernel, forced through its pick as
     ``bench/tiles.py`` does, on a ragged batch: four codewords a thread at
     DMAX 8 (an odd-Z code), one at DMAX 16 (a random QC code of degree
@@ -117,8 +133,9 @@ def test_kernel_every_tile(dev, tile, name, algo, minclamp, et):
 
 @pytest.mark.parametrize("tile", K.TILES)
 @pytest.mark.parametrize("name", ["1944x972", "randqc16"])
-@pytest.mark.parametrize("algo,minclamp", ALGOS)
-def test_kernel_mask_every_tile(dev, tile, name, algo, minclamp):
+@pytest.mark.parametrize("algo,minclamp", ALL_PAIRS)
+def test_kernel_mask_every_tile(dev, decode_pairs, tile, name, algo,
+                                minclamp):
     """The convergence mask in each build of the QC kernel, on a ragged
     batch of converged and unconverged codewords: bits, ``iters_used`` and
     ``ok`` against the plain decode and ``syndrome_fn``."""
@@ -236,14 +253,13 @@ _GATHER_BUILDS = [(name, v) for name, dmax in (("1024x518", 8),
                                                 ("1200x600", 16),
                                                 ("2048x384", 32))
                   for v in G.BUILDS[dmax]]
-ALL_PAIRS = [(a, m) for a in ("MS", "OMS", "NMS", "2NMS")
-             for m in ("pre", "post")]
 
 
 @pytest.mark.parametrize("name,variant", _GATHER_BUILDS, ids=str)
 @pytest.mark.parametrize("algo,minclamp", ALL_PAIRS)
 @pytest.mark.parametrize("et", [False, True])
-def test_gather_kernel_every_variant(dev, name, variant, algo, minclamp, et):
+def test_gather_kernel_every_variant(dev, decode_pairs, name, variant, algo,
+                                     minclamp, et):
     """Each build of the gather kernel at all 8 (algorithm, minclamp)
     pairs, ET on and off, forced through its pick as ``bench/tiles.py``
     does, on a ragged batch (37: a partial tile, and a partial packed word
@@ -435,23 +451,10 @@ _VARIANTS = [S.Variant(p, t, k)
              for t in ts for k in S.LANES if k == 1 or t <= 8]
 
 
-@pytest.fixture(scope="module")
-def streamed_pairs():
-    """The streamed kernel's eight libraries, one per (algorithm, minclamp)
-    pair, built at once (one nvcc each) before the tests that launch
-    them."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    from concurrent.futures import ThreadPoolExecutor
-
-    with ThreadPoolExecutor(len(S.PAIRS)) as pool:
-        return list(pool.map(lambda am: S.build(*am), S.PAIRS))
-
-
 @pytest.mark.parametrize("variant", _VARIANTS, ids=str)
 @pytest.mark.parametrize("algo,minclamp", ALL_PAIRS)
 @pytest.mark.parametrize("et", [False, True])
-def test_streamed_kernel_every_tile(dev, streamed_pairs, variant, algo,
+def test_streamed_kernel_every_tile(dev, decode_pairs, variant, algo,
                                     minclamp, et):
     """Each build of the streamed kernel at DMAX 16 (both APP placements,
     every tile, 1, 2 and 4 lanes a check) for each (algorithm, minclamp)
@@ -472,7 +475,7 @@ def test_streamed_kernel_every_tile(dev, streamed_pairs, variant, algo,
                          ids=["128-pick", "77-pick", "77-smem2"])
 @pytest.mark.parametrize("algo,minclamp", ALL_PAIRS)
 @pytest.mark.parametrize("et", [False, True])
-def test_streamed_kernel_64800_every_pair(dev, streamed_pairs, B, variant,
+def test_streamed_kernel_64800_every_pair(dev, decode_pairs, B, variant,
                                           algo, minclamp, et):
     """64800x32400, the benchmark's DVB-S2 view, for each (algorithm,
     minclamp) pair: at B=128 (the block cell's batch) and at a ragged 77

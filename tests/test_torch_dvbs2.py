@@ -254,20 +254,6 @@ def test_each_kernel_refuses_what_it_does_not_take():
         synth, LayeredSpec())
 
 
-def test_streamed_wrapper_runs_plain_on_cpu_tensors():
-    code = effective_code(load_code("16200x10800"))
-    spec = LayeredSpec(iters=3, early_term=True)
-    rng = np.random.default_rng(8)
-    llr = torch.from_numpy(np.clip(
-        8.0 * rng.normal(-1.0, 0.6, size=(5, code.N)), -31, 31).astype(np.int8))
-    before = S.launches["streamed_minsum"]
-    dec = S.make_streamed_decoder(code, spec)
-    kb, ki = dec(llr)
-    pb, pi = make_layered_decoder(code, spec)(llr)
-    assert torch.equal(kb, pb) and int(ki) == int(pi)
-    assert S.launches["streamed_minsum"] == before  # no kernel on the CPU
-
-
 _SMEM, _DEV = "smem", "device"
 
 

@@ -214,27 +214,9 @@ def test_gather_tables_describe_the_schedule(name, schedule):
             vn[e0:e0 + G_ * d].reshape(d, G_), lay.idx.T)
 
 
-@pytest.mark.parametrize("name", ["200x100", "2048x384", "1024x518"])
-def test_gather_wrapper_runs_plain_on_cpu_tensors(name):
-    code = load_code(name)
-    spec = LayeredSpec(iters=3, early_term=True)
-    llr = torch.from_numpy(_llrs(code.N, 13, 2))
-    kb, ki = G.make_gather_decoder(code, spec)(llr)
-    pb, pi = make_layered_decoder(code, spec)(llr)
-    assert torch.equal(kb, pb) and int(ki) == int(pi)
-
-
 def test_gather_wrapper_checks():
     code = load_code("200x100")
-    dec = G.make_gather_decoder(code, LayeredSpec(iters=2))
-    with pytest.raises(TypeError):
-        dec(torch.zeros((2, code.N), dtype=torch.int16))
-    with pytest.raises(ValueError):
-        dec(torch.zeros((2, code.N + 1), dtype=torch.int8))
-    with pytest.raises(ValueError):
-        dec(torch.zeros((0, code.N), dtype=torch.int8))
-    with pytest.raises(ValueError, match="no kernel"):
-        dec(torch.zeros((2, code.N), dtype=torch.int8, device="meta"))
+    # its input checks: test_torch_layered.py::test_decoder_input_checks
     with pytest.raises(ValueError, match="unknown algo"):
         G.make_gather_decoder(code, LayeredSpec(algo="BP"))
     with pytest.raises(NotImplementedError, match="does not fit shared memory"):

@@ -1,6 +1,6 @@
 """The gather kernel's builds and its pick on the CPU, without a card and
 without JAX: the variants the source builds against the wrapper's list,
-the (algorithm, minclamp) dispatch, the pick at the sweep's, the suite's
+the pick at the sweep's, the suite's
 and two-phase phase 2's batches on an H100's 132 SMs against the variant
 table measured there (``bench/tiles.py``), and the shared memory and
 CTAs an SM that the wrapper charges the variant it launches.
@@ -119,7 +119,7 @@ def test_builds_mirror_the_source():
     built = _built()
     assert {d: sorted(vs) for d, vs in built.items()} == {
         d: sorted(vs) for d, vs in G.BUILDS.items()}
-    assert set(built) == set(G.DMAXES)
+    assert set(built) == set(_lib.DMAXES)
     for name in ("NTHREADS", "W"):
         assert re.search(rf"constexpr int {name} = (\d+);",
                          _source("gather_minsum.cu")).group(1) == str(
@@ -133,28 +133,12 @@ def test_builds_mirror_the_source():
             assert v.tile // G.W * v.k <= 32
 
 
-def test_every_algo_and_minclamp_maps_to_a_build():
-    """The C entry dispatches each of the 8 (algorithm, minclamp) pairs to
-    the build of that pair, by the enum the wrapper's ``ALGO`` mirrors."""
-    enum = dict((n, int(v)) for n, v in re.findall(
-        r"(\w+) = (\d+)", re.search(r"enum Algo \{(.*?)\}",
-                                    _source("minsum_common.cuh")).group(1)))
-    assert sorted(enum.values()) == sorted(_lib.ALGO.values())
-    cases = re.findall(
-        r"case (\w+) \* 2 \+ ([01]): return launch_variant<(\w+), "
-        r"(false|true)>", _source("gather_minsum.cu"))
-    got = {(enum[a], int(pre)) for a, pre, b, flag in cases
-           if a == b and int(pre) == (flag == "true")}
-    assert len(cases) == 8
-    assert got == {(v, pre) for v in _lib.ALGO.values() for pre in (0, 1)}
-
-
 @pytest.mark.parametrize("name", NON_QC)
 def test_every_pick_is_a_build(name):
     """Whatever the batch and the card, the pick is a build that takes the
     code (its DMAX, an APP tile that fits shared memory)."""
     code = load_code(name)
-    built = _built()[G._dmax(code)]
+    built = _built()[_lib.dmax(code.classes)]
     for sms in (132, 114, 78):
         for B in (1, 3, 77, 128, 384, 1000, 1024, 4096, 8192, 16384, 65536):
             v = G.pick_tile(code, B, sms)
@@ -170,7 +154,7 @@ def test_every_build_is_reachable():
     codes = [load_code(n) for n in NON_QC] + [
         make_random_regular_code(n, n // 2, 6, seed=1)
         for n in (512, 3000, 12000)]
-    picked = {(G._dmax(c), G.pick_tile(c, B))
+    picked = {(_lib.dmax(c.classes), G.pick_tile(c, B))
               for c in codes for B in (32, 128, 384, 1024, 2048, 4096, 8192,
                                        16384, 65536)}
     want = {(d, v) for d, vs in G.BUILDS.items() for v in vs}

@@ -18,7 +18,10 @@ from ldpcgputegra_tpu.ops.layered import LayeredSpec as JSpec
 from ldpcgputegra_tpu.ops.layered import make_layered_decoder as j_decoder
 from ldpcgputegra_tpu_torch.codes.dvbs2 import to_qc_form
 from ldpcgputegra_tpu_torch.codes.registry import load_code
-from ldpcgputegra_tpu_torch.decoder import make_decoder
+from ldpcgputegra_tpu_torch.decoder import effective_code, make_decoder
+from ldpcgputegra_tpu_torch.kernels import gather as G
+from ldpcgputegra_tpu_torch.kernels import layered as K
+from ldpcgputegra_tpu_torch.kernels import streamed as S
 from ldpcgputegra_tpu_torch.kernels.layered import make_cuda_decoder
 from ldpcgputegra_tpu_torch.ops.layered import (
     LayeredSpec,
@@ -128,23 +131,46 @@ def test_plain_matches_golden(algo, minclamp):
                                       decode_golden(gcode, llr[f], gp)[0])
 
 
-def test_cuda_wrapper_runs_plain_on_cpu_tensors():
-    code = load_code("576x288")
+# each decode kernel's wrapper: (module, its decoder, its launch counter)
+_WRAPPERS = {"layered": (K, K.make_cuda_decoder, "layered_minsum"),
+             "gather": (G, G.make_gather_decoder, "gather_minsum"),
+             "streamed": (S, S.make_streamed_decoder, "streamed_minsum")}
+
+
+@pytest.mark.parametrize("kernel,name,b", [
+    ("layered", "576x288", 20), ("gather", "200x100", 13),
+    ("gather", "2048x384", 13), ("gather", "1024x518", 13),
+    ("streamed", "16200x10800", 5)])
+def test_cuda_wrapper_runs_plain_on_cpu_tensors(kernel, name, b):
+    """Each kernel's wrapper runs the plain version on a CPU tensor (a
+    staircase code through its QC view, as ``make_decoder`` takes it) and
+    launches nothing."""
+    mod, make, counter = _WRAPPERS[kernel]
+    code = effective_code(load_code(name))
     spec = LayeredSpec(iters=3, early_term=True)
-    llr = torch.from_numpy(_llrs(code.N, 20, 2, 0.6))
-    kb, ki = make_cuda_decoder(code, spec)(llr)
+    llr = torch.from_numpy(_llrs(code.N, b, 2, np.linspace(0.3, 0.9, b)))
+    before = mod.launches[counter]
+    kb, ki = make(code, spec)(llr)
     pb, pi = make_layered_decoder(code, spec)(llr)
     assert torch.equal(kb, pb) and int(ki) == int(pi)
+    assert mod.launches[counter] == before  # no kernel on the CPU
 
 
-def test_decoder_input_checks():
+@pytest.mark.parametrize("kernel", sorted(_WRAPPERS))
+def test_decoder_input_checks(kernel):
     code = load_code("576x288")
     dec = make_layered_decoder(code, LayeredSpec(iters=2))
     with pytest.raises(TypeError):
         dec(torch.zeros((2, code.N), dtype=torch.int16))
     with pytest.raises(ValueError):
         dec(torch.zeros((2, code.N + 1), dtype=torch.int8))
-    wrap = make_cuda_decoder(code, LayeredSpec(iters=2))
+    wrap = _WRAPPERS[kernel][1](code, LayeredSpec(iters=2))
+    with pytest.raises(TypeError):
+        wrap(torch.zeros((2, code.N), dtype=torch.int16))
+    with pytest.raises(ValueError):
+        wrap(torch.zeros((2, code.N + 1), dtype=torch.int8))
+    with pytest.raises(ValueError):
+        wrap(torch.zeros((0, code.N), dtype=torch.int8))
     with pytest.raises(ValueError, match="no kernel"):
         wrap(torch.zeros((2, code.N), dtype=torch.int8, device="meta"))
 

@@ -128,5 +128,5 @@ def test_streamed_lanes_only_where_the_degree_needs_them():
         if S.kernel_unsupported_reason(code, LayeredSpec()) is not None:
             continue
         ks = {v.k for v in S.variants(code)}
-        assert ks == ({1} if S._dmax(code) == 8 else set(S.LANES)), name
+        assert ks == ({1} if _lib.dmax(code.layers) == 8 else set(S.LANES)), name
         assert all(v.tile <= 8 for v in S.variants(code) if v.k > 1)
