@@ -9,7 +9,9 @@ pair each, which are the QC kernel (``layered_minsum``), the gather kernel
 for non-QC codes (``gather_minsum``) and the streamed kernel for the
 DVB-S2 QC views and synthqc (``streamed_minsum``); the probes of the
 card's ceilings (``probes.cu``: ``probe_mix``, ``probe_peak``,
-``probe_copy``) and the roll probe (``roll_probe.cu``: ``probe_roll``).
+``probe_copy``), the roll probe (``roll_probe.cu``: ``probe_roll``) and
+the channel's and the count's kernels (``channel_count.cu``:
+``awgn_quantize``, ``count_errors``).
 Prints what the decode kernels compile to (SASS instructions per edge
 update, registers, stack, spills).  Holds the QC kernel against the
 committed golden vectors, and each kernel against its plain PyTorch
@@ -62,7 +64,11 @@ points: ``python -m ldpcgputegra_tpu_torch.bench.headline`` in a process
 of its own (one JSON line, its ms per call within 10% of K1's time at
 2304x1152 B=8192 in this run) and ``entry.py::entry()``'s flagship step
 (1944x972 B=128) bit for bit against the plain decoder, each with K1's
-launches.
+launches; (phase 27) the channel's and the count's kernels at the two
+sweep cells' shapes (64800x32400 B=512, 4000x2000 B=4096) against the
+chain of PyTorch operations they replace, byte for byte, with their
+times beside their bounds and the chain's, and 16 launches of each a
+graph replay of 16 sweep batches.
 Imports nothing of JAX.  Exits non-zero, before printing any result, when
 there is no CUDA device or the package is not beside this script; any
 failing phase exits non-zero.  The last line of standard output is
@@ -165,17 +171,21 @@ def _throughput(kdec, pdec, name, B, smi, dev, seed0):
 
 def _main_path(code_name, batch, snr, cli_snr, max_frames, dev, counter, key):
     """``run_sweep`` at two SNR points and the CLI at one, on the card;
-    returns the kernel launches they made.  FER must fall with SNR and the
-    decoded BER must be below the raw channel BER."""
+    returns the decode kernel's launches they made and the channel's and
+    the count's kernels' (``kernels/channel.py``), by name.  FER must fall
+    with SNR and the decoded BER must be below the raw channel BER."""
     import torch
 
     from ldpcgputegra_tpu_torch.channel.awgn import AwgnChannel
     from ldpcgputegra_tpu_torch.codes.registry import load_code
+    from ldpcgputegra_tpu_torch.kernels import channel as C
     from ldpcgputegra_tpu_torch.sim import cli
     from ldpcgputegra_tpu_torch.sim.sweep import SweepConfig, run_sweep
 
     code = load_code(code_name)
     counter[key] = 0
+    for name in C.launches:
+        C.launches[name] = 0
     res = run_sweep(SweepConfig(
         code=code_name, algo="OMS", iters=10, early_term=True, batch=batch,
         snr_min=snr[0], snr_max=snr[1], snr_step=snr[1] - snr[0], max_fe=50,
@@ -186,8 +196,11 @@ def _main_path(code_name, batch, snr, cli_snr, max_frames, dev, counter, key):
               str(8 * batch), "--quiet", "--device", "cuda"])
     torch.cuda.synchronize()
     n_launch = counter[key]
-    print(f"[main-path] {code_name}: {key} launches: {n_launch}")
+    c_launch = dict(C.launches)
+    print(f"[main-path] {code_name}: {key} launches: {n_launch}; channel "
+          f"and count launches: {c_launch}")
     assert n_launch > 0, "the main path did not run the kernel"
+    assert all(c_launch.values()), "the main path did not run the channel"
     p_lo, p_hi = res.points
     assert p_hi.fer < p_lo.fer, "FER does not fall with SNR"
     for p in res.points:
@@ -199,7 +212,7 @@ def _main_path(code_name, batch, snr, cli_snr, max_frames, dev, counter, key):
               f"FE={p.fe} FER={p.fer:.4e} BER={p.ber:.4e} raw channel "
               f"BER={raw:.4e} ({p.mbps:.1f} coded Mbit/s wall clock)")
         assert p.ber < raw, "decoding did not lower the BER"
-    return n_launch
+    return n_launch, c_launch
 
 
 def _ints(dev, n, seed, low=-31, high=32):
@@ -1155,6 +1168,173 @@ def _entry(dev):
     return n_launch
 
 
+def _device_us(fn, inputs, k=24):
+    """Device microseconds a ``fn(x)`` call takes, ``x`` cycled through
+    ``inputs``, by the profiler: every kernel, copy and fill of ``k``
+    calls over ``k``; and the same by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ldpcgputegra_tpu_torch.bench.harness import device_time_by_kernel
+
+    for x in inputs:
+        fn(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(k):
+            fn(inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    by_name = {n: us / k for n, us in device_time_by_kernel(prof).items()}
+    return sum(by_name.values()), by_name
+
+
+# the two sweep cells' shapes: (code, batch)
+CHANNEL_SHAPES = (("64800x32400", 512), ("4000x2000", 4096))
+
+
+def _channel_count(dev, hbm, smi, main_launches):
+    """Phase 27: the channel's and the count's kernels
+    (``kernels/channel.py``, ``csrc/channel_count.cu``; they replace no
+    TPU kernel: the JAX package left this chain to XLA's fusion) at the
+    two sweep cells' shapes.  ``awgn_quantize`` through
+    ``AwgnChannel.generate_zero_int8`` against the chain of PyTorch
+    operations (``generate_int8`` of the zero codeword) on the same seed,
+    byte for byte, the generator's next draw equal, and the kernel against
+    its plain version on the same noise; ``count_errors`` through
+    ``count_errors_async`` against its plain version on decoded bits and
+    on random bytes.  Each kernel's device time (the profiler's) beside
+    its bound (its bytes at the data sheet's 3.35 TB/s and at the probed
+    ``hbm`` bytes a second), its plain version's and the chain's it
+    replaces; a graph of 16 sweep batches launches each kernel 16 times a
+    replay and counts what eager batches count.  Returns the kernels' rows
+    of the summary line: their ``launches`` those of the main paths of
+    phases 9 and 12 (``main_launches``, by code: the sweep and the CLI at
+    4000x2000 and at 64800x32400), ``launches_replay`` those of one replay
+    of the graph here."""
+    import torch
+
+    from ldpcgputegra_tpu_torch.bench import sass
+    from ldpcgputegra_tpu_torch.bench.roofline import TABLE_HBM_BYTES_PER_S
+    from ldpcgputegra_tpu_torch.channel.awgn import AwgnChannel
+    from ldpcgputegra_tpu_torch.codes.registry import load_code
+    from ldpcgputegra_tpu_torch.decoder import make_decoder
+    from ldpcgputegra_tpu_torch.kernels import channel as C
+    from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec
+    from ldpcgputegra_tpu_torch.sim.analyzer import count_errors_async
+    from ldpcgputegra_tpu_torch.sim.scan import ScanSteps
+
+    lib = C.build()["path"]
+    ops = sass.opcodes(lib, "awgn_quantize_kernel")
+    ffma = sum(n for o, n in ops.items() if o.startswith("FFMA"))
+    print(f"[channel] awgn_quantize SASS: {sum(ops.values())} instructions, "
+          f"FFMA {ffma}; count_errors SASS: "
+          f"{sum(sass.opcodes(lib, 'count_errors_kernel').values())}")
+    assert ffma == 0, "awgn_quantize contracts a multiply and an add"
+    def diff(a, b):
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    rows = {"awgn_quantize": {}, "count_errors": {}}  # by kernel, by shape
+    err = {"awgn_quantize": 0, "count_errors": 0}
+    for name, B in CHANNEL_SHAPES:
+        code = load_code(name)
+        chan = AwgnChannel(code.N, code.K, device=dev)
+        chan.configure(2.0)
+        sat = chan.spec.quant.sat
+        zeros = torch.zeros((B, code.N), dtype=torch.int8, device=dev)
+        for seed in (2700, 2701):
+            g1, g2 = chan.generator(seed), chan.generator(seed)
+            got = chan.generate_zero_int8(g1, B)
+            want = chan.generate_int8(g2, zeros)
+            assert torch.equal(*[torch.randn(64, generator=g, device=dev)
+                                 for g in (g1, g2)]), (name, seed)
+            noise = torch.randn((B, code.N), generator=chan.generator(seed),
+                                device=dev)
+            err["awgn_quantize"] = max(
+                err["awgn_quantize"], diff(got, want),
+                diff(C.awgn_quantize(noise, 1.0, chan._scalars, sat),
+                     C.awgn_quantize_plain(noise, 1.0, chan._scalars, sat)))
+        dec = make_decoder(code, LayeredSpec(algo="OMS", iters=10,
+                                             early_term=True), device=dev)
+        decoded = [dec(chan.generate_zero_int8(chan.generator(2710 + i),
+                                               B))[0] for i in range(4)]
+        rnd = [torch.randint(0, 2, (B, code.N), dtype=torch.uint8,
+                             device=dev, generator=chan.generator(2720 + i))
+               for i in range(2)]
+        for x in decoded + rnd:
+            err["count_errors"] = max(
+                err["count_errors"],
+                diff(torch.stack(count_errors_async(x)),
+                     C.count_errors_plain(x, code.N)))
+        assert not any(err.values()), (name, err)
+        print(f"[channel] {name} B={B}: counts of the decoded batches "
+              f"{[torch.stack(count_errors_async(x)).tolist() for x in decoded]}")
+        noises = [torch.randn((B, code.N), generator=chan.generator(2730 + i),
+                              device=dev) for i in range(3)]
+        gens = [chan.generator(2740 + i) for i in range(3)]
+        shape = f"{name} B={B}"
+        # the bound: the float32 noise read and the int8 LLRs written; the
+        # decoded bytes read
+        for kname, nbytes, kernel, plain, inputs in (
+                ("awgn_quantize", 5 * B * code.N,
+                 lambda x: C.awgn_quantize(x, 1.0, chan._scalars, sat),
+                 lambda x: C.awgn_quantize_plain(x, 1.0, chan._scalars, sat),
+                 noises),
+                ("count_errors", B * code.N, count_errors_async,
+                 lambda x: C.count_errors_plain(x, code.N), decoded)):
+            t_k, by_k = _device_us(kernel, inputs)
+            at = {"ms": t_k / 1e3, "plain_ms": _device_us(plain, inputs)[0] / 1e3,
+                  "bound_ms": nbytes / TABLE_HBM_BYTES_PER_S * 1e3,
+                  "probed_bound_ms": nbytes / hbm * 1e3}
+            if kname == "awgn_quantize":
+                # the chain it replaces, the draw included, and the draw
+                at["chain_ms"] = _device_us(
+                    lambda g: chan.generate_int8(g, zeros), gens)[0] / 1e3
+                at["draw_ms"] = _device_us(lambda g: torch.randn(
+                    (B, code.N), generator=g, device=dev), gens)[0] / 1e3
+            rows[kname][shape] = at
+            us = {k: round(v * 1e3, 2) for k, v in at.items()}
+            print(f"[channel] {kname} {shape}: {us} (us); "
+                  f"{at['ms'] / at['probed_bound_ms']:.3f}x the bound at the "
+                  f"probed {hbm / 1e9:.1f} GB/s; by name {by_k} | {smi}")
+        # a graph of 16 sweep batches: 16 launches of each a replay, and the
+        # replayed counts those of the eager batches
+        def step(g):
+            return torch.stack(count_errors_async(
+                dec(chan.generate_zero_int8(g, B))[0]))
+
+        scan = ScanSteps(step, 16, dev)
+        seeds = list(range(2800, 2816))
+        before = dict(C.launches)
+        out = scan(seeds)
+        per = {k: C.launches[k] - before[k] for k in before}
+        eager = torch.stack([step(chan.generator(s)) for s in seeds])
+        assert torch.equal(out, eager), (name, out.tolist(), eager.tolist())
+        assert per == {"awgn_quantize": 17, "count_errors": 17}, per
+        replay = dict(scan.per_replay[-1])
+        assert replay == {"awgn_quantize": 16, "count_errors": 16}, replay
+        print(f"[channel] {name} B={B}: a graph of 16 batches: launches "
+              f"{scan.per_replay[-1]} a replay (the capture's warm-up batch "
+              f"one more), counts equal to eager: BE, FE "
+              f"{out.sum(0).tolist()}")
+    kernels = []
+    for kname, at in rows.items():
+        first = next(iter(at.values()))
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "ldpcgputegra_tpu_torch/csrc/channel_count.cu",
+            "replaces": C.REPLACES,
+            "launches": sum(c[kname] for c in main_launches.values()),
+            "launches_by_code": {code: c[kname]
+                                 for code, c in main_launches.items()},
+            "launches_replay": replay[kname],
+            "max_abs_err": err[kname], "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": "bytes", "probed_bound_ms": first["probed_bound_ms"],
+            "library_ms": None, "at": at,
+        })
+    return kernels
+
+
 def main() -> int:
     import torch
 
@@ -1170,6 +1350,7 @@ def main() -> int:
     from ldpcgputegra_tpu_torch.codes.registry import load_code
     from ldpcgputegra_tpu_torch.decoder import backend_for, effective_code
     from ldpcgputegra_tpu_torch.kernels import _lib
+    from ldpcgputegra_tpu_torch.kernels import channel as C
     from ldpcgputegra_tpu_torch.kernels import gather as G
     from ldpcgputegra_tpu_torch.kernels import layered as K
     from ldpcgputegra_tpu_torch.kernels import streamed as S
@@ -1203,12 +1384,13 @@ def main() -> int:
     # (algorithm, minclamp) pair, all started together
     decode_kernels = {"layered_minsum": K, "gather_minsum": G,
                       "streamed_minsum": S}
-    with ThreadPoolExecutor(2 + 3 * len(_lib.PAIRS)) as pool:
+    with ThreadPoolExecutor(3 + 3 * len(_lib.PAIRS)) as pool:
         builds = {**{f"{name} {a}/{m}": pool.submit(mod.build, a, m)
                      for name, mod in decode_kernels.items()
                      for a, m in _lib.PAIRS},
                   "probes": pool.submit(V.build),
-                  "roll_probe": pool.submit(P.build)}
+                  "roll_probe": pool.submit(P.build),
+                  "channel_count": pool.submit(C.build)}
         builds = {name: f.result() for name, f in builds.items()}
     for name, info in builds.items():
         print(f"[build] {name}: {os.path.relpath(info['path'], HERE)} in "
@@ -1284,8 +1466,8 @@ def main() -> int:
     phase_done(5)
 
     # 6. the QC path: sweep + CLI at 1944x972, counted launches
-    n_launch = _main_path("1944x972", 1024, (1.5, 2.5), 2.0, 64 * 1024, dev,
-                          K.launches, "layered_minsum")
+    n_launch, _ = _main_path("1944x972", 1024, (1.5, 2.5), 2.0, 64 * 1024,
+                             dev, K.launches, "layered_minsum")
     phase_done(6)
 
     # 7. gather kernel vs the plain version on the card: bits and iters_used
@@ -1329,8 +1511,12 @@ def main() -> int:
     phase_done(8)
 
     # 9. the gather path: sweep + CLI at 4000x2000, counted launches
-    g_launch = _main_path("4000x2000", 4096, (1.5, 2.0), 2.0, 16 * 4096, dev,
-                          G.launches, "gather_minsum")
+    # the channel's and the count's launches in the two sweep cells' codes'
+    # main paths, by code (phase 27's rows)
+    c_launches = {}
+    g_launch, c_launches["4000x2000"] = _main_path(
+        "4000x2000", 4096, (1.5, 2.0), 2.0, 16 * 4096, dev, G.launches,
+        "gather_minsum")
     phase_done(9)
 
     # 10. streamed kernel vs the plain version on the card, on the QC views
@@ -1371,8 +1557,9 @@ def main() -> int:
     phase_done(11)
 
     # 12. the DVB-S2 path: sweep + CLI at 64800x32400, counted launches
-    s_launch = _main_path("64800x32400", 512, (1.5, 2.0), 2.0, 16 * 512, dev,
-                          S.launches, "streamed_minsum")
+    s_launch, c_launches["64800x32400"] = _main_path(
+        "64800x32400", 512, (1.5, 2.0), 2.0, 16 * 512, dev, S.launches,
+        "streamed_minsum")
     phase_done(12)
 
     # 13. each probe kernel against its plain version on the card (exact),
@@ -1538,6 +1725,12 @@ def main() -> int:
     entry_launch = _entry(dev)
     phase_done(26)
 
+    # 27. the channel's and the count's kernels at the two sweep cells'
+    # shapes: against the chain of PyTorch operations, their time beside
+    # their bound and the chain's, 16 launches of each a graph replay
+    channel_rows = _channel_count(dev, rates["hbm"], smi, c_launches)
+    phase_done(27)
+
     # "route" is how the kernel is written (CUDA C++); "backend" is the
     # decoder backend that ``auto`` resolves to on the path it was driven
     # on; no one PyTorch call computes a layered min-sum decode, so its
@@ -1610,6 +1803,7 @@ def main() -> int:
             **({"bytes_of": b_by} if b_by == "shared memory" else {}),
             "library_ms": library_ms,
         })
+    kernels += channel_rows
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

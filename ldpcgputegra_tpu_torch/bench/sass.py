@@ -22,6 +22,7 @@ builds them) beside this one's.  Needs ``cuobjdump`` (the CUDA toolkit).
 from __future__ import annotations
 
 import argparse
+import collections
 import glob
 import os
 import re
@@ -33,7 +34,8 @@ from typing import Optional
 from ..kernels import _lib
 from .vpu_probe import _BRA, _FUNC, _INSTR, _PRED, alu_pipe
 
-__all__ = ["sass_text", "resources", "per_edge", "report", "VARIANTS",
+__all__ = ["sass_text", "resources", "per_edge", "opcodes", "report",
+           "VARIANTS",
            "layered_symbol", "streamed_symbol", "gather_symbol"]
 
 _RES = re.compile(r"Function\s+(\S+):\s*(.*)")
@@ -90,6 +92,17 @@ def _function(path: str, symbol: str) -> Optional[list[tuple[int, str]]]:
 
 def _op(text: str) -> str:
     return _PRED.sub("", text).split()[0]
+
+
+def opcodes(path: str, symbol: str) -> collections.Counter:
+    """Each opcode (with its modifiers, without a predicate) of the
+    function in the library at ``path`` whose mangled name contains
+    ``symbol``, by count; ``NOP`` not counted."""
+    fn = _function(path, symbol)
+    if fn is None:
+        raise RuntimeError(f"no function {symbol} in {path}")
+    return collections.Counter(o for o in (_op(t) for _, t in fn)
+                               if o != "NOP")
 
 
 def _loops(instrs: list[tuple[int, str]]) -> list[tuple[int, int]]:

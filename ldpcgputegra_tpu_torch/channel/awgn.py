@@ -10,6 +10,14 @@ of ``ldpcgputegra_tpu/channel/awgn.py``).
   mode, and LLR sign-flip fault injection;
 * the quantized path is ``quant.quantize_llr`` on the float values.
 
+On a CUDA device ``generate_zero_int8`` of a plain AWGN spec (no fading,
+normalisation, noiseless mode or flips; BPSK or QPSK) draws the same
+``torch.randn`` block and hands it to one kernel
+(``kernels/channel.py::awgn_quantize``) that makes the int8 LLRs with the
+same float32 operations, each rounded on its own: the same bytes, and the
+generator advanced as by the chain.  Every other spec, explicit coded bits
+and every CPU tensor run the chain of PyTorch operations.
+
 Randomness comes from an explicit ``torch.Generator`` on the output's
 device.  It cannot reproduce the JAX package's threefry stream: the
 contract is statistical.
@@ -31,6 +39,7 @@ from typing import Optional
 import torch
 
 from ..decoder import default_device
+from ..kernels import channel as channel_kernels
 from ..quant import QuantSpec, optimal_llr_factor, quantize_llr
 
 __all__ = ["ChannelSpec", "sigma_for_snr", "AwgnChannel"]
@@ -150,9 +159,24 @@ class AwgnChannel:
         return _quantize(gen, self.generate_float(gen, tx_bits),
                          self._scalars[1], self.spec)
 
+    def _fused(self) -> bool:
+        """Whether ``generate_zero_int8`` takes the one-kernel path: a CUDA
+        device and plain AWGN."""
+        s = self.spec
+        return (self.device.type == "cuda" and s.fading == "none"
+                and not s.normalize and not s.no_channel
+                and s.inject_flip_p == 0.0)
+
     def generate_zero_int8(self, gen: torch.Generator, batch: int) -> torch.Tensor:
         """Quantized int8 LLRs for the all-zero codeword (the GPU channel's
         only mode: ``CChanel_AWGN_SIMD.cu:22`` hard-codes tx = -1)."""
+        if self._fused():
+            self._check()
+            noise = torch.randn((batch, self.n), generator=gen,
+                                device=self.device)
+            amp = _INV_SQRT2 if self.spec.qpsk else 1.0
+            return channel_kernels.awgn_quantize(noise, amp, self._scalars,
+                                                 self.spec.quant.sat)
         zeros = torch.zeros((batch, self.n), dtype=torch.int8,
                             device=self.device)
         return self.generate_int8(gen, zeros)

@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from ..kernels import channel as channel_kernels
+
 __all__ = ["count_errors", "count_errors_async", "ErrorAnalyzer"]
 
 
@@ -24,8 +26,17 @@ def count_errors_async(decoded: torch.Tensor, reference=None,
     fetched, so callers can keep batches in flight.
 
     ``reference=None`` is the all-zero-codeword convention (any nonzero
-    decoded bit is an error).
+    decoded bit is an error).  There, on a CUDA tensor, one kernel
+    (``kernels/channel.py::count_errors``, which takes 2-D uint8, int8 or
+    bool frames and raises on any other) counts; a reference and every CPU
+    tensor take the PyTorch operations.  Both give the same counts.
     """
+    if reference is None and decoded.device.type == "cuda":
+        cols = decoded.shape[-1]
+        if info_only and k is not None:
+            cols = min(k, cols)
+        be, fe = channel_kernels.count_errors(decoded, cols)
+        return be, fe
     err = decoded != 0 if reference is None else decoded != reference
     if info_only and k is not None:
         err = err[:, :k]

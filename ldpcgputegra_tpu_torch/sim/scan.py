@@ -44,9 +44,10 @@ __all__ = ["ScanSteps"]
 
 def _launch_counters() -> list[dict]:
     """The kernel wrappers' launch counters (``kernels/*.launches``)."""
-    from ..kernels import gather, layered, streamed
+    from ..kernels import channel, gather, layered, streamed
 
-    return [layered.launches, gather.launches, streamed.launches]
+    return [layered.launches, gather.launches, streamed.launches,
+            channel.launches]
 
 
 class ScanSteps:
