@@ -200,7 +200,9 @@ def _main_path(code_name, batch, snr, cli_snr, max_frames, dev, counter, key):
     print(f"[main-path] {code_name}: {key} launches: {n_launch}; channel "
           f"and count launches: {c_launch}")
     assert n_launch > 0, "the main path did not run the kernel"
-    assert all(c_launch.values()), "the main path did not run the channel"
+    zero = ("awgn_quantize", "count_errors")  # the all-zero codeword's forms
+    assert all(c_launch[k] for k in zero), "the main path did not run the channel"
+    assert not any(n for k, n in c_launch.items() if k not in zero), c_launch
     p_lo, p_hi = res.points
     assert p_hi.fer < p_lo.fer, "FER does not fall with SNR"
     for p in res.points:
@@ -593,6 +595,7 @@ def _coded_paths(dev, smi):
 
     from ldpcgputegra_tpu_torch.channel.awgn import AwgnChannel
     from ldpcgputegra_tpu_torch.codes.registry import load_code
+    from ldpcgputegra_tpu_torch.kernels import channel as C
     from ldpcgputegra_tpu_torch.kernels import gather as G
     from ldpcgputegra_tpu_torch.kernels import streamed as S
 
@@ -609,6 +612,7 @@ def _coded_paths(dev, smi):
         rate = {}
         for e in (enc, "fake", enc):
             mod.launches[key] = 0
+            coded0 = C.launches["awgn_quantize_coded"]
             (p,), wall, _ = _timed_sweep(_sweep_cfg(
                 code=name, batch=B, snr_min=snr, snr_max=snr, encoder=e,
                 max_frames=n_batches * B))
@@ -616,6 +620,9 @@ def _coded_paths(dev, smi):
                 launches[key] += mod.launches[key]
                 assert mod.launches[key] > 0, f"{name}: no {key} launch"
                 assert p.ber < raw, f"{name}: decoding did not lower the BER"
+                # the channel on coded bits is the coded kernel, a batch each
+                assert (C.launches["awgn_quantize_coded"] - coded0
+                        == mod.launches[key]), f"{name}: the coded channel"
             rate.setdefault(e, []).append(p.mbps)
             print(f"[coded] {name} B={B} {e} {snr} dB: {p.frames} frames, "
                   f"FE={p.fe} FER={p.fer:.4e} BER={p.ber:.4e} (raw channel "
@@ -1190,51 +1197,116 @@ def _device_us(fn, inputs, k=24):
 
 # the two sweep cells' shapes: (code, batch)
 CHANNEL_SHAPES = (("64800x32400", 512), ("4000x2000", 4096))
+# the coded sweep cell's: (code, batch, Eb/N0 dB); the info bits counted
+CODED_SHAPE = ("16200x10800", 512, 2.4)
+
+
+def _channel_chain(chan, gen, bits):
+    """The chain of PyTorch operations that the channel's kernel replaces,
+    for coded bits: ``generate_float`` then the quantizer."""
+    from ldpcgputegra_tpu_torch.channel.awgn import _quantize
+
+    return _quantize(gen, chan.generate_float(gen, bits), chan._scalars[1],
+                     chan.spec)
 
 
 def _channel_count(dev, hbm, smi, main_launches):
     """Phase 27: the channel's and the count's kernels
     (``kernels/channel.py``, ``csrc/channel_count.cu``; they replace no
-    TPU kernel: the JAX package left this chain to XLA's fusion) at the
-    two sweep cells' shapes.  ``awgn_quantize`` through
-    ``AwgnChannel.generate_zero_int8`` against the chain of PyTorch
-    operations (``generate_int8`` of the zero codeword) on the same seed,
-    byte for byte, the generator's next draw equal, and the kernel against
-    its plain version on the same noise; ``count_errors`` through
-    ``count_errors_async`` against its plain version on decoded bits and
-    on random bytes.  Each kernel's device time (the profiler's) beside
-    its bound (its bytes at the data sheet's 3.35 TB/s and at the probed
-    ``hbm`` bytes a second), its plain version's and the chain's it
-    replaces; a graph of 16 sweep batches launches each kernel 16 times a
-    replay and counts what eager batches count.  Returns the kernels' rows
-    of the summary line: their ``launches`` those of the main paths of
-    phases 9 and 12 (``main_launches``, by code: the sweep and the CLI at
-    4000x2000 and at 64800x32400), ``launches_replay`` those of one replay
-    of the graph here."""
+    TPU kernel: the JAX package left this chain to XLA's fusion), the
+    all-zero codeword's forms at the two sweep cells' shapes and the coded
+    forms at the coded sweep cell's.  ``awgn_quantize`` through
+    ``AwgnChannel.generate_zero_int8`` (``generate_int8`` of coded bits)
+    against the chain of PyTorch operations on the same seed, byte for
+    byte, the generator's next draw equal, and the kernel against its
+    plain version on the same noise; ``count_errors`` through
+    ``count_errors_async`` (against the bits sent, over the info bits)
+    against its plain version on decoded bits and on random bytes.  Each
+    kernel's device time (the profiler's) beside its bound (its bytes at
+    the data sheet's 3.35 TB/s and at the probed ``hbm`` bytes a second),
+    its plain version's and the chain's it replaces; a graph of 16 sweep
+    batches launches each kernel 16 times a replay and counts what eager
+    batches count.  Returns the kernels' rows of the summary line: the
+    zero forms' ``launches`` those of the main paths of phases 9 and 12
+    (``main_launches``, by code: the sweep and the CLI at 4000x2000 and
+    at 64800x32400), the coded forms' those of a coded sweep of the coded
+    cell's traffic here, and ``launches_replay`` those of one replay of
+    the last graph of each."""
     import torch
 
     from ldpcgputegra_tpu_torch.bench import sass
     from ldpcgputegra_tpu_torch.bench.roofline import TABLE_HBM_BYTES_PER_S
     from ldpcgputegra_tpu_torch.channel.awgn import AwgnChannel
+    from ldpcgputegra_tpu_torch.channel.bitgen import generate_info_bits
+    from ldpcgputegra_tpu_torch.channel.encoder import make_encoder
     from ldpcgputegra_tpu_torch.codes.registry import load_code
     from ldpcgputegra_tpu_torch.decoder import make_decoder
     from ldpcgputegra_tpu_torch.kernels import channel as C
+    from ldpcgputegra_tpu_torch.kernels import streamed as S
     from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec
     from ldpcgputegra_tpu_torch.sim.analyzer import count_errors_async
     from ldpcgputegra_tpu_torch.sim.scan import ScanSteps
 
     lib = C.build()["path"]
-    ops = sass.opcodes(lib, "awgn_quantize_kernel")
-    ffma = sum(n for o, n in ops.items() if o.startswith("FFMA"))
-    print(f"[channel] awgn_quantize SASS: {sum(ops.values())} instructions, "
-          f"FFMA {ffma}; count_errors SASS: "
-          f"{sum(sass.opcodes(lib, 'count_errors_kernel').values())}")
-    assert ffma == 0, "awgn_quantize contracts a multiply and an add"
+    for kname in ("awgn_quantize", "awgn_quantize_coded"):
+        ops = sass.opcodes(lib, f"{kname}_kernel")
+        ffma = sum(n for o, n in ops.items() if o.startswith("FFMA"))
+        print(f"[channel] {kname} SASS: {sum(ops.values())} instructions, "
+              f"FFMA {ffma}")
+        assert ops and ffma == 0, f"{kname} contracts a multiply and an add"
+    for kname in ("count_errors", "count_errors_ref"):
+        print(f"[channel] {kname} SASS: "
+              f"{sum(sass.opcodes(lib, f'{kname}_kernel').values())} "
+              f"instructions")
+
     def diff(a, b):
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
-    rows = {"awgn_quantize": {}, "count_errors": {}}  # by kernel, by shape
-    err = {"awgn_quantize": 0, "count_errors": 0}
+    def timed(shape, kname, nbytes, kernel, plain, inputs, chain=None,
+              gens=None, draw=None):
+        """The kernel's row at ``shape``: its time beside its bound, its
+        plain version's and, for the channel, the chain's and the draw's."""
+        t_k, by_k = _device_us(kernel, inputs)
+        at = {"ms": t_k / 1e3,
+              "plain_ms": _device_us(plain, inputs)[0] / 1e3,
+              "bound_ms": nbytes / TABLE_HBM_BYTES_PER_S * 1e3,
+              "probed_bound_ms": nbytes / hbm * 1e3}
+        if chain is not None:
+            # the chain it replaces, the draw included, and the draw
+            at["chain_ms"] = _device_us(chain, gens)[0] / 1e3
+            at["draw_ms"] = _device_us(draw, gens)[0] / 1e3
+        rows[kname][shape] = at
+        us = {k: round(v * 1e3, 2) for k, v in at.items()}
+        print(f"[channel] {kname} {shape}: {us} (us); "
+              f"{at['ms'] / at['probed_bound_ms']:.3f}x the bound at the "
+              f"probed {hbm / 1e9:.1f} GB/s; by name {by_k} | {smi}")
+
+    def graphed(name, B, chan, step, forms):
+        """A graph of 16 batches of ``step``: 16 launches of each of
+        ``forms`` a replay (17 with the capture's eager warm-up batch),
+        none of the others, and the eager batches' counts, the eager
+        batches' generators ``chan``'s."""
+        scan = ScanSteps(step, 16, dev)
+        seeds = list(range(2800, 2816))
+        before = dict(C.launches)
+        out = scan(seeds)
+        per = {k: C.launches[k] - before[k] for k in before}
+        eager = torch.stack([step(chan.generator(s)) for s in seeds])
+        assert torch.equal(out, eager), (name, out.tolist(), eager.tolist())
+        assert per == {k: 17 * (k in forms) for k in before}, per
+        replay = scan.replayed(C.launches)
+        assert replay == {k: 16 * (k in forms) for k in before}, replay
+        print(f"[channel] {name} B={B}: a graph of 16 batches: launches "
+              f"{replay} a replay (the capture's warm-up batch "
+              f"one more), counts equal to eager: BE, FE "
+              f"{out.sum(0).tolist()}")
+        return replay
+
+    forms = {"awgn_quantize": "awgn_quantize_coded",
+             "count_errors": "count_errors_ref"}
+    rows = {k: {} for k in (*forms, *forms.values())}  # by kernel, by shape
+    err = dict.fromkeys(rows, 0)
+    spec = LayeredSpec(algo="OMS", iters=10, early_term=True)
     for name, B in CHANNEL_SHAPES:
         code = load_code(name)
         chan = AwgnChannel(code.N, code.K, device=dev)
@@ -1244,7 +1316,7 @@ def _channel_count(dev, hbm, smi, main_launches):
         for seed in (2700, 2701):
             g1, g2 = chan.generator(seed), chan.generator(seed)
             got = chan.generate_zero_int8(g1, B)
-            want = chan.generate_int8(g2, zeros)
+            want = _channel_chain(chan, g2, zeros)
             assert torch.equal(*[torch.randn(64, generator=g, device=dev)
                                  for g in (g1, g2)]), (name, seed)
             noise = torch.randn((B, code.N), generator=chan.generator(seed),
@@ -1253,8 +1325,7 @@ def _channel_count(dev, hbm, smi, main_launches):
                 err["awgn_quantize"], diff(got, want),
                 diff(C.awgn_quantize(noise, 1.0, chan._scalars, sat),
                      C.awgn_quantize_plain(noise, 1.0, chan._scalars, sat)))
-        dec = make_decoder(code, LayeredSpec(algo="OMS", iters=10,
-                                             early_term=True), device=dev)
+        dec = make_decoder(code, spec, device=dev)
         decoded = [dec(chan.generate_zero_int8(chan.generator(2710 + i),
                                                B))[0] for i in range(4)]
         rnd = [torch.randint(0, 2, (B, code.N), dtype=torch.uint8,
@@ -1274,48 +1345,109 @@ def _channel_count(dev, hbm, smi, main_launches):
         shape = f"{name} B={B}"
         # the bound: the float32 noise read and the int8 LLRs written; the
         # decoded bytes read
-        for kname, nbytes, kernel, plain, inputs in (
-                ("awgn_quantize", 5 * B * code.N,
-                 lambda x: C.awgn_quantize(x, 1.0, chan._scalars, sat),
-                 lambda x: C.awgn_quantize_plain(x, 1.0, chan._scalars, sat),
-                 noises),
-                ("count_errors", B * code.N, count_errors_async,
-                 lambda x: C.count_errors_plain(x, code.N), decoded)):
-            t_k, by_k = _device_us(kernel, inputs)
-            at = {"ms": t_k / 1e3, "plain_ms": _device_us(plain, inputs)[0] / 1e3,
-                  "bound_ms": nbytes / TABLE_HBM_BYTES_PER_S * 1e3,
-                  "probed_bound_ms": nbytes / hbm * 1e3}
-            if kname == "awgn_quantize":
-                # the chain it replaces, the draw included, and the draw
-                at["chain_ms"] = _device_us(
-                    lambda g: chan.generate_int8(g, zeros), gens)[0] / 1e3
-                at["draw_ms"] = _device_us(lambda g: torch.randn(
-                    (B, code.N), generator=g, device=dev), gens)[0] / 1e3
-            rows[kname][shape] = at
-            us = {k: round(v * 1e3, 2) for k, v in at.items()}
-            print(f"[channel] {kname} {shape}: {us} (us); "
-                  f"{at['ms'] / at['probed_bound_ms']:.3f}x the bound at the "
-                  f"probed {hbm / 1e9:.1f} GB/s; by name {by_k} | {smi}")
-        # a graph of 16 sweep batches: 16 launches of each a replay, and the
-        # replayed counts those of the eager batches
-        def step(g):
-            return torch.stack(count_errors_async(
-                dec(chan.generate_zero_int8(g, B))[0]))
+        timed(shape, "awgn_quantize", 5 * B * code.N,
+              lambda x: C.awgn_quantize(x, 1.0, chan._scalars, sat),
+              lambda x: C.awgn_quantize_plain(x, 1.0, chan._scalars, sat),
+              noises, chain=lambda g: _channel_chain(chan, g, zeros),
+              gens=gens, draw=lambda g: torch.randn((B, code.N), generator=g,
+                                                    device=dev))
+        timed(shape, "count_errors", B * code.N, count_errors_async,
+              lambda x: C.count_errors_plain(x, code.N), decoded)
+        replay = graphed(name, B, chan, lambda g: torch.stack(
+            count_errors_async(dec(chan.generate_zero_int8(g, B))[0])), forms)
 
-        scan = ScanSteps(step, 16, dev)
-        seeds = list(range(2800, 2816))
-        before = dict(C.launches)
-        out = scan(seeds)
-        per = {k: C.launches[k] - before[k] for k in before}
-        eager = torch.stack([step(chan.generator(s)) for s in seeds])
-        assert torch.equal(out, eager), (name, out.tolist(), eager.tolist())
-        assert per == {"awgn_quantize": 17, "count_errors": 17}, per
-        replay = dict(scan.per_replay[-1])
-        assert replay == {"awgn_quantize": 16, "count_errors": 16}, replay
-        print(f"[channel] {name} B={B}: a graph of 16 batches: launches "
-              f"{scan.per_replay[-1]} a replay (the capture's warm-up batch "
-              f"one more), counts equal to eager: BE, FE "
-              f"{out.sum(0).tolist()}")
+    # the coded forms at the coded sweep cell's shape: the table encoder's
+    # codewords of seeded info bits, the count over the info bits
+    name, B, snr = CODED_SHAPE
+    code = load_code(name)
+    K = code.K
+    chan = AwgnChannel(code.N, K, device=dev)
+    chan.configure(snr)
+    sat = chan.spec.quant.sat
+    enc = make_encoder(code, "table")
+    dec = make_decoder(code, spec, device=dev)
+
+    def coded_of(gen):
+        return enc.encode(generate_info_bits(gen, B, K))
+
+    for seed in (2750, 2751):
+        g1, g2 = chan.generator(seed), chan.generator(seed)
+        bits = coded_of(g1)
+        assert torch.equal(bits, coded_of(g2)), (name, seed)
+        got = chan.generate_int8(g1, bits)
+        want = _channel_chain(chan, g2, bits)
+        assert torch.equal(*[torch.randn(64, generator=g, device=dev)
+                             for g in (g1, g2)]), (name, seed)
+        noise = torch.randn((B, code.N), generator=chan.generator(seed),
+                            device=dev)
+        err["awgn_quantize_coded"] = max(
+            err["awgn_quantize_coded"], diff(got, want),
+            diff(C.awgn_quantize(noise, 1.0, chan._scalars, sat, bits),
+                 C.awgn_quantize_plain(noise, 1.0, chan._scalars, sat, bits)))
+    sent = [coded_of(chan.generator(2760 + i)).view(torch.uint8)
+            for i in range(4)]
+    decoded = [dec(chan.generate_int8(chan.generator(2770 + i), x))[0]
+               for i, x in enumerate(sent)]
+    rnd = [torch.randint(0, 2, (B, code.N), dtype=torch.uint8, device=dev,
+                         generator=chan.generator(2780 + i)) for i in range(2)]
+    pairs = list(zip(decoded, sent)) + [(rnd[0], sent[0]), (rnd[1], rnd[0])]
+    for x, ref in pairs:
+        err["count_errors_ref"] = max(
+            err["count_errors_ref"],
+            diff(torch.stack(count_errors_async(x, reference=ref,
+                                                info_only=True, k=K)),
+                 C.count_errors_plain(x, K, ref)))
+    assert not any(err.values()), (name, err)
+    counts = [torch.stack(count_errors_async(x, reference=r, info_only=True,
+                                             k=K)).tolist()
+              for x, r in pairs[:4]]
+    print(f"[channel] {name} B={B}: info-bit counts of the decoded batches "
+          f"against the bits sent {counts}")
+    gens = [chan.generator(2790 + i) for i in range(3)]
+    noises = [(torch.randn((B, code.N), generator=g, device=dev), x)
+              for g, x in zip(gens, sent)]
+    shape = f"{name} B={B}"
+    # the bound: the float32 noise and the coded bits read, the int8 LLRs
+    # written; the decoded bits and the bits sent, over the info bits, read
+    timed(shape, "awgn_quantize_coded", 6 * B * code.N,
+          lambda x: C.awgn_quantize(x[0], 1.0, chan._scalars, sat, x[1]),
+          lambda x: C.awgn_quantize_plain(x[0], 1.0, chan._scalars, sat, x[1]),
+          noises, chain=lambda g: _channel_chain(chan, g, sent[0]),
+          gens=gens, draw=lambda g: torch.randn((B, code.N), generator=g,
+                                                device=dev))
+    timed(shape, "count_errors_ref", 2 * B * K,
+          lambda x: count_errors_async(x[0], reference=x[1], info_only=True,
+                                       k=K),
+          lambda x: C.count_errors_plain(x[0], K, x[1]), pairs[:4])
+
+    def coded_step(g):
+        bits = coded_of(g)
+        decoded, _ = dec(chan.generate_int8(g, bits))
+        return torch.stack(count_errors_async(
+            decoded, reference=bits.view(torch.uint8), info_only=True, k=K))
+
+    coded_replay = graphed(name, B, chan, coded_step, forms.values())
+    # the main path of the coded cell's traffic: run_sweep with the table
+    # encoder, 16 batches a graph replay; one launch of each coded form a
+    # K2 launch, and none of the zero forms
+    for k in C.launches:
+        C.launches[k] = 0
+    S.launches["streamed_minsum"] = 0
+    (p,), _, _ = _timed_sweep(_sweep_cfg(
+        code=name, batch=B, snr_min=snr, snr_max=snr, encoder="table",
+        count_bits="info", scan_steps=16, pipeline_depth=2,
+        max_frames=64 * B))
+    torch.cuda.synchronize()
+    coded_launches = dict(C.launches)
+    k2 = S.launches["streamed_minsum"]
+    print(f"[channel] {name} B={B} coded sweep at {snr} dB: {p.frames} "
+          f"frames, FE={p.fe} BER={p.ber:.4e}, launches {coded_launches}, "
+          f"streamed_minsum {k2}, {p.mbps:.1f} coded Mbit/s | {smi}")
+    assert k2 > 0 and coded_launches == {
+        k: k2 * (k in forms.values()) for k in coded_launches}, coded_launches
+    main_launches = {**{k: {c: n[k] for c, n in main_launches.items()}
+                        for k in forms},
+                     **{k: {name: coded_launches[k]} for k in forms.values()}}
     kernels = []
     for kname, at in rows.items():
         first = next(iter(at.values()))
@@ -1323,10 +1455,10 @@ def _channel_count(dev, hbm, smi, main_launches):
             "name": kname, "route": "cuda",
             "source": "ldpcgputegra_tpu_torch/csrc/channel_count.cu",
             "replaces": C.REPLACES,
-            "launches": sum(c[kname] for c in main_launches.values()),
-            "launches_by_code": {code: c[kname]
-                                 for code, c in main_launches.items()},
-            "launches_replay": replay[kname],
+            "launches": sum(main_launches[kname].values()),
+            "launches_by_code": main_launches[kname],
+            "launches_replay": (replay if kname in forms
+                                else coded_replay)[kname],
             "max_abs_err": err[kname], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": "bytes", "probed_bound_ms": first["probed_bound_ms"],
@@ -1725,9 +1857,10 @@ def main() -> int:
     entry_launch = _entry(dev)
     phase_done(26)
 
-    # 27. the channel's and the count's kernels at the two sweep cells'
-    # shapes: against the chain of PyTorch operations, their time beside
-    # their bound and the chain's, 16 launches of each a graph replay
+    # 27. the channel's and the count's kernels, the zero forms at the two
+    # sweep cells' shapes and the coded forms at the coded cell's: against
+    # the chain of PyTorch operations, their time beside their bound and
+    # the chain's, 16 launches of each a graph replay
     channel_rows = _channel_count(dev, rates["hbm"], smi, c_launches)
     phase_done(27)
 

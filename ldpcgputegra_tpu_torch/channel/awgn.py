@@ -10,13 +10,14 @@ of ``ldpcgputegra_tpu/channel/awgn.py``).
   mode, and LLR sign-flip fault injection;
 * the quantized path is ``quant.quantize_llr`` on the float values.
 
-On a CUDA device ``generate_zero_int8`` of a plain AWGN spec (no fading,
-normalisation, noiseless mode or flips; BPSK or QPSK) draws the same
-``torch.randn`` block and hands it to one kernel
+On a CUDA device ``generate_zero_int8`` and ``generate_int8`` of a plain
+AWGN spec (no fading, normalisation, noiseless mode or flips; BPSK or
+QPSK) draw the same ``torch.randn`` block and hand it, with the coded
+bits where there are some, to one kernel
 (``kernels/channel.py::awgn_quantize``) that makes the int8 LLRs with the
 same float32 operations, each rounded on its own: the same bytes, and the
-generator advanced as by the chain.  Every other spec, explicit coded bits
-and every CPU tensor run the chain of PyTorch operations.
+generator advanced as by the chain.  Every other spec and every CPU
+tensor run the chain of PyTorch operations.
 
 Randomness comes from an explicit ``torch.Generator`` on the output's
 device.  It cannot reproduce the JAX package's threefry stream: the
@@ -156,12 +157,19 @@ class AwgnChannel:
     def generate_int8(self, gen: torch.Generator,
                       tx_bits: torch.Tensor) -> torch.Tensor:
         """Quantized int8 LLRs for explicit coded bits [B, N]."""
+        if self._fused():
+            self._check()
+            bits = tx_bits.to(self.device)
+            noise = torch.randn(bits.shape, generator=gen, device=self.device)
+            amp = _INV_SQRT2 if self.spec.qpsk else 1.0
+            return channel_kernels.awgn_quantize(
+                noise, amp, self._scalars, self.spec.quant.sat, bits=bits)
         return _quantize(gen, self.generate_float(gen, tx_bits),
                          self._scalars[1], self.spec)
 
     def _fused(self) -> bool:
-        """Whether ``generate_zero_int8`` takes the one-kernel path: a CUDA
-        device and plain AWGN."""
+        """Whether ``generate_int8`` and ``generate_zero_int8`` take the
+        one-kernel path: a CUDA device and plain AWGN."""
         s = self.spec
         return (self.device.type == "cuda" and s.fading == "none"
                 and not s.normalize and not s.no_channel

@@ -20,6 +20,14 @@ GF(2) is ``u @ S^T mod 2`` as a float64 matrix product, exact (its sums
 stay far below 2^53; TF32 would round them).  The JAX package encodes
 with NumPy on the host (or its native C++ where built, with the same
 outputs); the results are equal bit for bit on the same info bits.
+
+An encode queues its operations with no host synchronisation and no
+shape that depends on the data, so a CUDA graph captures it once the
+tables are on the card (the sweep's eager warm-up batch copies them).
+``Encoder.encode`` runs in the span ``ldpc.encode`` (count: the frames)
+and adds one to ``encodes[kind]``; the accumulate table's scatter is
+built at set-up in the span ``ldpc.encoder.build`` (count: the scatter
+pairs).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import torch
 
 from ..codes.code import LdpcCode
 from ..codes.registry import DATA_DIR
+from ..utils.profiling import span
 
 __all__ = [
     "Encoder",
@@ -41,7 +50,12 @@ __all__ = [
     "StaircaseEncoder",
     "GF2Encoder",
     "make_encoder",
+    "encodes",
 ]
+
+# Batches encoded in this process, by encoder kind: ``Encoder.encode`` adds
+# one a call, and nowhere else.
+encodes = {"fake": 0, "table": 0, "staircase": 0, "gf2": 0}
 
 
 class Encoder:
@@ -50,6 +64,7 @@ class Encoder:
 
     n: int
     k: int
+    kind: str  # the key of ``encodes`` (``make_encoder``'s kind)
 
     def __init__(self) -> None:
         self._tables: dict[torch.device, tuple] = {}
@@ -69,17 +84,26 @@ class Encoder:
                              f"{tuple(info_bits.shape)}")
 
     def encode(self, info_bits: torch.Tensor) -> torch.Tensor:
+        """Codeword bits [B, N] int8 for ``info_bits`` [B, K]."""
+        with span("encode", count=len(info_bits)):
+            out = self._encode(info_bits)
+        encodes[self.kind] += 1
+        return out
+
+    def _encode(self, info_bits: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
 
 class FakeEncoder(Encoder):
     """All-zero codeword (CFakeEncoder): ignores info bits."""
 
+    kind = "fake"
+
     def __init__(self, n: int, k: int):
         super().__init__()
         self.n, self.k = n, k
 
-    def encode(self, info_bits: torch.Tensor) -> torch.Tensor:
+    def _encode(self, info_bits: torch.Tensor) -> torch.Tensor:
         return torch.zeros((info_bits.shape[0], self.n), dtype=torch.int8,
                            device=info_bits.device)
 
@@ -104,6 +128,8 @@ class QCAccumulateEncoder(Encoder):
     XOR turns accumulated parities into the staircase parity chain.
     """
 
+    kind = "table"
+
     def __init__(self, n: int, k: int, q: int, m: int, lines: list[list[int]]):
         super().__init__()
         self.n, self.k, self.q, self.m = n, k, q, m
@@ -111,16 +137,18 @@ class QCAccumulateEncoder(Encoder):
         if len(self.lines) * m != k:
             raise ValueError("table does not cover K info bits")
         # per info bit x, its scatter positions, flattened
-        pos_list, bit_list = [], []
-        nmk = n - k
-        for g, line in enumerate(self.lines):
-            for x_in_g in range(m):
-                x = g * m + x_in_g
-                p = (line + (x % m) * q) % nmk
-                pos_list.append(p)
-                bit_list.append(np.full(p.size, x, dtype=np.int64))
-        self._scatter_pos = np.concatenate(pos_list)
-        self._scatter_bit = np.concatenate(bit_list)
+        with span("encoder.build") as sp:
+            pos_list, bit_list = [], []
+            nmk = n - k
+            for g, line in enumerate(self.lines):
+                for x_in_g in range(m):
+                    x = g * m + x_in_g
+                    p = (line + (x % m) * q) % nmk
+                    pos_list.append(p)
+                    bit_list.append(np.full(p.size, x, dtype=np.int64))
+            self._scatter_pos = np.concatenate(pos_list)
+            self._scatter_bit = np.concatenate(bit_list)
+            sp.count = self._scatter_pos.size
 
     @staticmethod
     def from_json(path: str) -> "QCAccumulateEncoder":
@@ -130,7 +158,7 @@ class QCAccumulateEncoder(Encoder):
             doc["N"], doc["K"], doc["Q"], doc["M"], doc["rows"]
         )
 
-    def encode(self, info_bits: torch.Tensor) -> torch.Tensor:
+    def _encode(self, info_bits: torch.Tensor) -> torch.Tensor:
         self._check(info_bits)
         pos, bit = self._on(info_bits.device, self._scatter_pos,
                             self._scatter_bit)
@@ -174,6 +202,8 @@ class StaircaseEncoder(Encoder):
     final running XOR computes (``GenericEncoder.cpp:74-77``).
     """
 
+    kind = "staircase"
+
     def __init__(self, code: LdpcCode):
         super().__init__()
         rows_info = _check_rows_in_parity_order(code)
@@ -185,7 +215,7 @@ class StaircaseEncoder(Encoder):
                          if lens.sum() else np.empty(0, np.int64))
         self._row_of_edge = np.repeat(np.arange(len(rows_info)), lens)
 
-    def encode(self, info_bits: torch.Tensor) -> torch.Tensor:
+    def _encode(self, info_bits: torch.Tensor) -> torch.Tensor:
         self._check(info_bits)
         pos, bit = self._on(info_bits.device, self._row_of_edge,
                             self._row_idx)
@@ -203,6 +233,8 @@ class GF2Encoder(Encoder):
     computed ``info_cols``.  Intended for small and medium codes (M up to a
     few thousand); staircase codes should use `StaircaseEncoder`.
     """
+
+    kind = "gf2"
 
     def __init__(self, code: LdpcCode, max_m: int = 4096):
         super().__init__()
@@ -244,7 +276,7 @@ class GF2Encoder(Encoder):
         self.pivot_cols = np.asarray(pivot_of_row)
         self._S = H[np.asarray(pivot_rows)][:, self.info_cols]
 
-    def encode(self, info_bits: torch.Tensor) -> torch.Tensor:
+    def _encode(self, info_bits: torch.Tensor) -> torch.Tensor:
         self._check(info_bits)
         dev = info_bits.device
         s_t, info_cols, pivot_cols = self._on(

@@ -26,16 +26,18 @@ def count_errors_async(decoded: torch.Tensor, reference=None,
     fetched, so callers can keep batches in flight.
 
     ``reference=None`` is the all-zero-codeword convention (any nonzero
-    decoded bit is an error).  There, on a CUDA tensor, one kernel
+    decoded bit is an error); else a decoded bit is an error where it
+    differs from the reference's.  On a CUDA tensor one kernel
     (``kernels/channel.py::count_errors``, which takes 2-D uint8, int8 or
-    bool frames and raises on any other) counts; a reference and every CPU
-    tensor take the PyTorch operations.  Both give the same counts.
+    bool frames, and a reference of their type, shape and device, and
+    raises on any other) counts; every CPU tensor takes the PyTorch
+    operations.  Both give the same counts.
     """
-    if reference is None and decoded.device.type == "cuda":
+    if decoded.device.type == "cuda":
         cols = decoded.shape[-1]
         if info_only and k is not None:
             cols = min(k, cols)
-        be, fe = channel_kernels.count_errors(decoded, cols)
+        be, fe = channel_kernels.count_errors(decoded, cols, reference)
         return be, fe
     err = decoded != 0 if reference is None else decoded != reference
     if info_only and k is not None:

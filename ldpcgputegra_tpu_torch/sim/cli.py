@@ -101,8 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--pipeline", dest="pipeline_depth", type=int, default=2,
                    help="dispatches kept in flight")
     t.add_argument("--scan-steps", dest="scan_steps", type=int, default=1,
-                   help="fake-encoder batches a dispatch: one CUDA graph "
-                        "replay of S batches on the card")
+                   help="batches a dispatch, with any encoder: one CUDA "
+                        "graph replay of S batches on the card (the native "
+                        "backend takes one)")
 
     e = p.add_argument_group("encoder / quantization")
     e.add_argument("--encoder", default="fake",
@@ -214,7 +215,7 @@ def _print_info(cfg: SweepConfig) -> None:
         print(f"(II) backend      : none ({e})")
         return
     print(f"(II) backend      : {backend}")
-    if cfg.scan_steps > 1 and isinstance(enc, FakeEncoder):
+    if cfg.scan_steps > 1:
         how = ("one CUDA graph captured at the first dispatch, one replay "
                "a dispatch" if device.type == "cuda" else "a loop")
         print(f"(II) scan steps   : {cfg.scan_steps} batches a dispatch "

@@ -3,26 +3,28 @@
 folds ``scan_steps`` batches into one executable.
 
 On a CUDA device the S batches (channel -> quantize -> decode -> count,
-each ``step(gen)``) are captured once into one ``torch.cuda.CUDAGraph``,
+each ``step(gen)``; on the coded path the info bits' draw and the encoder
+first) are captured once into one ``torch.cuda.CUDAGraph``,
 and a dispatch is one replay plus a device-side copy of the graph's
 ``[S, 2]`` (BE, FE) buffer, so that several replays can be in flight
 without one overwriting another's counts.  Batch j of a dispatch draws
-its noise from the j-th of S generators, each registered with the graph
-(``register_generator_state``) and reseeded before each replay: a replay
-reads a generator's seed and offset when it starts, so batch k keeps the
-noise of its own seed and the counts are the same for any S.
+its info bits and noise from the j-th of S generators, each registered
+with the graph (``register_generator_state``) and reseeded before each
+replay: a replay reads a generator's seed and offset when it starts, so
+batch k keeps the draws of its own seed and the counts are the same for
+any S.
 
 Before the capture one eager step runs on a side stream: the kernel
-wrappers' one-time work (their tables copied to the card, the library
-loaded, the variant picked, the kernel's shared-memory attribute) happens
-there, not under capture.  The capture calls ``capture_begin`` and
+wrappers' and the encoder's one-time work (their tables copied to the
+card, the library loaded, the variant picked, the kernel's shared-memory
+attribute) happens there, not under capture.  The capture calls ``capture_begin`` and
 ``capture_end`` itself on that stream: ``torch.cuda.graph`` would first
 empty the allocator's caches, which cost a sweep that followed other work
 on an H100 0.6-0.8 s a capture.  A capture that fails raises; nothing
-falls back to eager dispatch.  The kernel wrappers' ``launches`` counters count the
-launches a capture records once, so they are taken back after it and each
-replay adds the graph's launches to them: the counters keep counting
-kernels that ran.
+falls back to eager dispatch.  The kernel wrappers' ``launches`` counters
+and the encoders' ``encodes`` count what a capture records once, so they
+are taken back after it and each replay adds the graph's counts to them:
+the counters keep counting kernels that ran and batches encoded.
 
 On the CPU (when the caller asks for it) the S steps run as a plain loop.
 A dispatch's reseeding runs in the span ``ldpc.scan.prepare``
@@ -43,11 +45,13 @@ __all__ = ["ScanSteps"]
 
 
 def _launch_counters() -> list[dict]:
-    """The kernel wrappers' launch counters (``kernels/*.launches``)."""
+    """The kernel wrappers' launch counters (``kernels/*.launches``) and
+    the encoders' (``channel/encoder.py::encodes``)."""
+    from ..channel import encoder
     from ..kernels import channel, gather, layered, streamed
 
     return [layered.launches, gather.launches, streamed.launches,
-            channel.launches]
+            channel.launches, encoder.encodes]
 
 
 class ScanSteps:
@@ -94,6 +98,14 @@ class ScanSteps:
             c.update(b)
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
+
+    def replayed(self, counter: dict) -> dict:
+        """What a replay adds to ``counter``, one of the launch counters
+        (``kernels/*.launches``, ``channel/encoder.py::encodes``)."""
+        for c, n in zip(_launch_counters(), self.per_replay):
+            if c is counter:
+                return n
+        raise KeyError("not a launch counter, or nothing captured yet")
 
     def __call__(self, seeds: Sequence[int]) -> torch.Tensor:
         if len(seeds) != self.S:

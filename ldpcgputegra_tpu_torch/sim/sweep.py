@@ -17,11 +17,13 @@ checkpoint is deterministic.  The info bits are not the JAX package's
 (it draws them with NumPy): the coded path's contract is statistical, as
 the channel's is.
 
-With the fake encoder, ``scan_steps`` = S > 1 dispatches S batches at a
-time (``sim/scan.py``): one CUDA graph replay on the card, where JAX runs
-one ``lax.scan`` executable; counters are the same for any S, and a frame
-budget that S does not divide is overshot to whole groups, as in JAX.
-The coded path dispatches one batch at a time, as JAX's does.
+``scan_steps`` = S > 1 dispatches S batches at a time (``sim/scan.py``):
+one CUDA graph replay on the card, where JAX runs one ``lax.scan``
+executable for the fake encoder; counters are the same for any S, and a
+frame budget that S does not divide is overshot to whole groups, as in
+JAX.  The coded path folds its batches too (the info bits' draw and the
+encoder inside the graph), where JAX's dispatches one at a time; the
+native backend dispatches one batch at a time.
 
 ``LDPC_TPU_DEBUG_TIMING=1`` prints each window's host spans, as the JAX
 sweep does: the time spent dispatching, the time waiting on the fetch of
@@ -93,8 +95,9 @@ class SweepConfig:
     timer_s: Optional[float] = None  # per-point wall budget (-timer)
     qef_fer: Optional[float] = None  # sweep cutoff (-qef)
     pipeline_depth: int = 2  # dispatches kept in flight
-    # fake-encoder batches a dispatch: S > 1 is one CUDA graph replay of S
-    # batches on the card (sim/scan.py), a loop of S on the CPU
+    # batches a dispatch (any encoder, not the native backend): S > 1 is one
+    # CUDA graph replay of S batches on the card (sim/scan.py), a loop of S
+    # on the CPU
     scan_steps: int = 1
 
     # auto | cuda | cuda-gather | cuda-streamed | torch | native
@@ -257,7 +260,8 @@ def run_sweep(
             info = generate_info_bits(gen, cfg.batch, code.K, cfg.random_bits)
             coded = encoder.encode(info)
             llr = channel.generate_int8(gen, coded)
-            reference = coded.to(torch.uint8)
+            # the decoded bits' type, so that the count's kernel takes it
+            reference = coded.view(torch.uint8)
         decoded, _ = decoder(llr)
         return torch.stack(count_errors_async(
             decoded, reference=reference, info_only=info_only, k=code.K))
@@ -301,8 +305,8 @@ def run_sweep(
         be_pf = err.sum(axis=1)
         return torch.tensor([[int(be_pf.sum()), int((be_pf != 0).sum())]])
 
-    # batches a dispatch: scan-folded on the fake-encoder device path only
-    grp = max(1, cfg.scan_steps) if is_fake and not use_native else 1
+    # batches a dispatch: scan-folded on every path but the native one
+    grp = max(1, cfg.scan_steps) if not use_native else 1
     scan = ScanSteps(step, grp, device) if grp > 1 else None
     metrics_f = open(cfg.metrics, "a") if cfg.metrics else None
     ckpt = _load_ckpt(cfg.checkpoint)

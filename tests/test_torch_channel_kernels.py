@@ -1,13 +1,15 @@
 """The channel's and the count's kernels (``kernels/channel.py``,
 ``csrc/channel_count.cu``) on the CPU, without a card and without JAX:
-which calls take them (``AwgnChannel.generate_zero_int8`` of a plain AWGN
-spec on a CUDA device, ``count_errors_async`` of any CUDA tensor against
-the all-zero codeword), that every other spec, a reference and every CPU
-tensor keep the chain of PyTorch operations, that a CPU sweep never
-reaches the kernels, the plain versions against that chain, the wrappers'
-checks, the rows the count's kernel reads in each layout, and the C
-entries' arguments against the wrapper's.  The kernels themselves are
-held to the chain on the card (``tests/test_torch_cuda_channel.py``).
+which calls take them (``AwgnChannel.generate_zero_int8`` and
+``generate_int8`` of a plain AWGN spec on a CUDA device,
+``count_errors_async`` of any CUDA tensor, against the all-zero codeword
+or against a reference), that every other spec and every CPU tensor keep
+the chain of PyTorch operations, that a CPU sweep never reaches the
+kernels, the plain versions (of the all-zero codeword and of coded bits)
+against that chain, the wrappers' checks, the rows the count's kernel
+reads in each layout, alone and beside a reference, and the C entries'
+arguments against the wrapper's.  The kernels themselves are held to the chain on the card
+(``tests/test_torch_cuda_channel.py``).
 """
 
 import os
@@ -159,7 +161,8 @@ def test_count_rule_takes_the_kernel(monkeypatch, info_only, k, cols, dtype):
     columns with ``info_only``."""
     seen = []
 
-    def fake(decoded, n):
+    def fake(decoded, n, reference=None):
+        assert reference is None
         seen.append(n)
         return torch.tensor([7, 3])
 
@@ -172,13 +175,14 @@ def test_count_rule_takes_the_kernel(monkeypatch, info_only, k, cols, dtype):
 
 @pytest.mark.parametrize("case", ["reference", "cpu"])
 def test_count_rule_keeps_the_chain(no_kernels, case):
+    """Frames on the CPU, with a reference (of another type) or without
+    one: the chain."""
     x = _bytes((12, 96), 2)
-    ref = _bytes((12, 96), 3) if case == "reference" else None
+    ref = _bytes((12, 96), 3).to(torch.int32) if case == "reference" else None
     err = x != 0 if ref is None else x != ref
     per = err.sum(dim=1)
     want = (int(per.sum()), int((per != 0).sum()))
-    got = x if case == "cpu" else _OnCard(x)
-    be, fe = count_errors_async(got, reference=ref)
+    be, fe = count_errors_async(x, reference=ref)
     assert (int(be), int(fe)) == want
 
 
@@ -199,7 +203,8 @@ def test_count_rule_on_the_card(monkeypatch, case):
         x = x.to(torch.int32)
     seen = []
 
-    def fake(decoded, n):
+    def fake(decoded, n, reference=None):
+        assert reference is None
         seen.append((decoded.t, n))
         return torch.tensor([1, 1])
 
@@ -297,6 +302,11 @@ def test_wrappers_check_their_inputs():
         C.count_errors(torch.zeros((2, 2, 4), dtype=torch.uint8), 4)
     with pytest.raises(ValueError):
         C.count_errors(torch.zeros((2, 4), dtype=torch.uint8), 5)
+    # a reference of another type or shape than the frames'
+    u8 = torch.zeros((2, 4), dtype=torch.uint8)
+    for ref in (u8.to(torch.int8), u8.to(torch.int32), u8[:1], u8.numpy()):
+        with pytest.raises(TypeError):
+            C.count_errors(u8, 4, ref)
     meta = torch.empty((2, 4), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         C.count_errors(meta, 4)
@@ -326,6 +336,25 @@ def test_scan_counts_the_channel_launches():
     assert any(c is C.launches for c in scan._launch_counters())
 
 
+def test_scan_replayed_reads_each_counter_by_identity():
+    """``ScanSteps.replayed`` gives a counter's own launches a replay,
+    wherever the counter lies among the launch counters, and raises for
+    a dict that is not one of them."""
+    from ldpcgputegra_tpu_torch.channel import encoder as E
+    from ldpcgputegra_tpu_torch.sim import scan
+
+    steps = scan.ScanSteps(lambda g: torch.zeros(2), 2, "cpu")
+    with pytest.raises(KeyError):
+        steps.replayed(C.launches)
+    counters = scan._launch_counters()
+    steps.per_replay = [{"at": i} for i in range(len(counters))]
+    for c in (C.launches, E.encodes):
+        i = next(i for i, x in enumerate(counters) if x is c)
+        assert steps.replayed(c) == {"at": i}
+    with pytest.raises(KeyError):
+        steps.replayed(dict(C.launches))
+
+
 def _entry_params(src, name):
     m = re.search(rf"int {name}\((.*?)\)\s*\{{", src, re.S)
     return [p.strip().split()[-1].lstrip("*") for p in m.group(1).split(",")]
@@ -338,13 +367,176 @@ def test_c_entries_match_the_wrapper():
     time)."""
     with open(C.SOURCE) as f:
         src = f.read()
-    for fn in ("awgn_quantize_launch", "count_errors_launch"):
+    for fn in ("awgn_quantize_launch", "awgn_quantize_coded_launch",
+               "count_errors_launch", "count_errors_ref_launch"):
         params = _entry_params(src, fn)
         assert len(params) == len(C._FUNCTIONS[fn][0]), (fn, params)
         assert params[-1] == "stream", params
     kernels = re.findall(r"^(\w+_kernel)\(", src, re.M)
-    assert kernels == ["awgn_quantize_kernel", "count_errors_kernel"], kernels
+    assert kernels == ["awgn_quantize_kernel", "awgn_quantize_coded_kernel",
+                       "count_errors_kernel", "count_errors_ref_kernel"], \
+        kernels
     assert "_minsum" not in src
     # no header of its own: the decode libraries' hashes do not move
     assert not re.search(r'#include "', src)
     assert os.path.dirname(C.SOURCE) == _lib.CSRC
+
+
+# ------------------------------------------------------- the coded forms --
+
+def _coded_chain(ch, seed, bits):
+    """The chain of PyTorch operations for coded bits: ``generate_float``
+    then the quantizer, as ``generate_int8`` runs them off the kernel."""
+    from ldpcgputegra_tpu_torch.channel.awgn import _quantize
+
+    gen = ch.generator(seed)
+    return _quantize(gen, ch.generate_float(gen, bits), ch._scalars[1],
+                     ch.spec)
+
+
+@pytest.mark.parametrize("qpsk", [False, True])
+@pytest.mark.parametrize("ebn0", [-2.0, 2.0])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.uint8, torch.bool,
+                                   torch.int32])
+def test_coded_plain_version_is_the_chain(qpsk, ebn0, dtype):
+    """``awgn_quantize_plain`` with coded bits (and the wrapper on a CPU
+    tensor) on the chain's own draw gives the chain's bytes: +amp for a 1,
+    -amp for a 0, the same float order; the CPU channel keeps the chain."""
+    ch = AwgnChannel(1944, 972, ChannelSpec(qpsk=qpsk), device="cpu")
+    ch.configure(ebn0)
+    bits = _bytes((40, 1944), 11).to(dtype)
+    noise = torch.randn((40, 1944), generator=ch.generator(5))
+    amp = 1.0 / np.sqrt(2.0) if qpsk else 1.0
+    sat = ch.spec.quant.sat
+    want = _coded_chain(ch, 5, bits)
+    assert torch.equal(ch.generate_int8(ch.generator(5), bits), want)
+    assert torch.equal(C.awgn_quantize_plain(noise, amp, ch._scalars, sat,
+                                             bits), want)
+    assert torch.equal(C.awgn_quantize(noise, amp, ch._scalars, sat, bits),
+                       want)
+    # a 1 and a 0 under the same noise give LLRs of the two symbols
+    zero = C.awgn_quantize_plain(noise, amp, ch._scalars, sat)
+    assert torch.equal(want[bits == 0], zero[bits == 0])
+
+
+@pytest.mark.parametrize("spec,fused", SPECS)
+def test_coded_channel_rule(monkeypatch, spec, fused):
+    """``generate_int8`` takes the coded kernel where ``generate_zero_int8``
+    takes the zero one: on a fused CUDA channel one ``randn`` draw of the
+    bits' shape from the generator given, and the draw and the bits go to
+    ``awgn_quantize``."""
+    seen, drawn = [], []
+
+    def fake(noise, amp, scalars, sat, bits=None):
+        seen.append((noise, amp, sat, bits))
+        return "llr"
+
+    def randn(shape, generator=None, device=None):
+        drawn.append((tuple(shape), generator, device))
+        return torch.zeros(shape)
+
+    ch = AwgnChannel(576, 288, spec, device="cpu")
+    ch.configure(1.5)
+    ch.device = torch.device("cuda", 0)
+    assert ch._fused() is fused
+    if not fused:
+        return
+    monkeypatch.setattr(C, "awgn_quantize", fake)
+    monkeypatch.setattr(torch, "randn", randn)
+    bits = _bytes((6, 576), 12)
+
+    class Sent:  # coded bits that move to the card as ``bits``
+        def to(self, device):
+            assert device == ch.device
+            return bits
+
+    gen = object()
+    assert ch.generate_int8(gen, Sent()) == "llr"
+    assert drawn == [((6, 576), gen, ch.device)]
+    ((noise, amp, sat, got),) = seen
+    assert got is bits and noise.shape == (6, 576) and sat == spec.quant.sat
+    assert amp == (1.0 / np.sqrt(2.0) if spec.qpsk else 1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8, torch.bool])
+@pytest.mark.parametrize("info_only,k,cols", [(False, None, 96),
+                                              (True, 40, 40)])
+def test_count_rule_takes_the_kernel_with_a_reference(monkeypatch, dtype,
+                                                      info_only, k, cols):
+    """Frames on the card and any reference: the kernel's wrapper, given
+    the reference as it came (the wrapper raises on one that is not of
+    the frames' type, shape and device); nothing on the card takes the
+    chain."""
+    seen = []
+
+    def fake(decoded, n, reference=None):
+        seen.append((decoded, n, reference))
+        return torch.tensor([5, 2])
+
+    monkeypatch.setattr(C, "count_errors", fake)
+    x = _OnCard(_bytes((12, 96), 1).to(dtype))
+    ref = _OnCard(_bytes((12, 96), 2).to(dtype))
+    other = _bytes((12, 96), 2).to(torch.int32)  # another type and device
+    wide = _OnCard(x.t.to(torch.int32))  # frames of four bytes a bit
+    for frames, r in ((x, ref), (x, other), (wide, _OnCard(other))):
+        be, fe = count_errors_async(frames, reference=r, info_only=info_only,
+                                    k=k)
+        assert seen[-1][0] is frames and seen[-1][1:] == (cols, r)
+        assert (int(be), int(fe)) == (5, 2)
+    assert len(seen) == 3
+
+
+@pytest.mark.parametrize("case", ["01", "bytes", "info", "ragged", "int8",
+                                  "bool"])
+def test_count_plain_with_a_reference_is_the_chain(case):
+    """``count_errors_plain`` (and the wrapper on a CPU tensor) against a
+    reference: the bytes that differ, as ``count_errors_async``'s chain
+    counts them."""
+    B, N, cols = 33, 1944, 1944
+    x, ref = _bytes((B, N), 4), _bytes((B, N), 14)
+    if case == "bytes":
+        x, ref = _bytes((B, N), 5, high=256), _bytes((B, N), 15, high=256)
+    elif case == "info":
+        cols = 972
+    elif case == "ragged":
+        x, ref, cols = _bytes((7, 1943), 7), _bytes((7, 1943), 17), 1943
+    elif case == "int8":
+        x = (_bytes((B, N), 8, high=256) - 128).to(torch.int8)
+        ref = (_bytes((B, N), 18, high=256) - 128).to(torch.int8)
+    elif case == "bool":
+        x, ref = x.bool(), ref.bool()
+    err = (x != ref)[:, :cols].sum(1)
+    want = torch.stack([err.sum(), (err != 0).sum()])
+    assert torch.equal(C.count_errors_plain(x, cols, ref), want)
+    assert torch.equal(C.count_errors(x, cols, ref), want)
+    be, fe = count_errors_async(x, reference=ref, info_only=True, k=cols)
+    assert torch.equal(torch.stack([be, fe]), want)
+
+
+@pytest.mark.parametrize("case", ["same", "info", "offset", "stride",
+                                  "one-row", "columns"])
+def test_count_row_pairs(case):
+    """``_byte_row_pair``: the frames and the reference read in place
+    where each reference row lies at its frame row's offset from a 16-byte
+    boundary, else fresh copies of the counted columns of both; the bytes
+    the kernel reads are the frames' and the reference's."""
+    big = _bytes((12, 128), 21, high=256)
+    rbig = _bytes((12, 128), 22, high=256)
+    x, ref, cols, in_place = big[:, :96], rbig[:, :96], 96, True
+    if case == "info":
+        cols = 40
+    elif case == "offset":  # both 3 bytes off a boundary
+        x, ref = big[:, 3:99], rbig[:, 3:99]
+    elif case == "stride":  # rows 128 and 96 bytes apart: 32 = 0 mod 16
+        ref = _bytes((12, 96), 23)
+    elif case == "one-row":
+        x, ref, in_place = big[:1, 5:101], rbig[:1, :96], False
+    elif case == "columns":  # the reference's rows 100 bytes apart
+        ref, in_place = _bytes((12, 100), 24)[:, :96], False
+    rows, stride, rrows, rstride = C._byte_row_pair(x, ref, cols)
+    assert (rows.data_ptr() == x.data_ptr()) is in_place
+    assert (rows.data_ptr() - rrows.data_ptr()) % 16 == 0
+    assert x.shape[0] == 1 or (stride - rstride) % 16 == 0
+    got = _read(rows, stride, x.shape, cols)
+    assert torch.equal(got, x[:, :cols])
+    assert torch.equal(_read(rrows, rstride, x.shape, cols), ref[:, :cols])

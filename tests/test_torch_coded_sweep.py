@@ -120,7 +120,8 @@ def test_cli_coded_flooding_and_scan_flags(capfd):
               "--encoder", "gf2", "--scan-steps", "8"])
     out = capfd.readouterr().out
     assert "encoder      : gf2 -> GF2Encoder" in out
-    assert "scan steps" not in out  # the coded path is not scan-folded
+    # the coded path is scan-folded too
+    assert "scan steps   : 8 batches a dispatch (one CUDA graph" in out
     cli.main(["--code", "576x288", "--info", "--device", "cuda",
               "--scan-steps", "8"])
     out = capfd.readouterr().out

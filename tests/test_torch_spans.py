@@ -148,3 +148,41 @@ def test_trace_holds_the_spans_on_the_callers_thread(tmp_path):
         rec_us = 1e6 * (r.end - r.start)
         assert abs(e["dur"] - rec_us) <= max(0.05 * rec_us, 50.0), (
             e["name"], e["dur"], rec_us)
+
+
+def test_encoder_spans_and_counter():
+    """The table encoder's scatter build at set-up is the span
+    ``ldpc.encoder.build`` (count: its pairs, 43200 at 16200x10800); each
+    encode is an ``ldpc.encode`` span (count: the frames) and one more in
+    ``encodes[kind]``; a coded sweep at scan_steps 2 encodes each batch
+    once, each encode inside its dispatch; ``sim/scan.py`` carries the
+    counter over graph replays."""
+    from ldpcgputegra_tpu_torch.channel import encoder as E
+    from ldpcgputegra_tpu_torch.sim import scan
+
+    assert any(c is E.encodes for c in scan._launch_counters())
+    code = load_code("16200x10800")
+    before = len(spans())
+    with _profile():
+        enc = E.make_encoder(code, "table")
+        n0 = dict(E.encodes)
+        enc.encode(torch.zeros((3, code.K), dtype=torch.int8))
+    got = _new(before)
+    assert [(r.name, r.count) for r in got] == [
+        ("ldpc.encoder.build", 43200), ("ldpc.encode", 3)]
+    assert {k: E.encodes[k] - n0[k] for k in n0} == {
+        "fake": 0, "table": 1, "staircase": 0, "gf2": 0}
+    cfg = SweepConfig(code="576x288", iters=3, snr_min=1.0, snr_max=1.0,
+                      batch=16, max_fe=10**9, auto_fe=False,
+                      max_frames=16 * 4, scan_steps=2, pipeline_depth=1,
+                      encoder="gf2", seed=5, device="cpu")
+    before = len(spans())
+    n0 = dict(E.encodes)
+    with _profile():
+        (p,) = run_sweep(cfg, progress=False).points
+    got = _new(before)
+    assert E.encodes["gf2"] - n0["gf2"] == p.batches == 4
+    encs = [r for r in got if r.name == "ldpc.encode"]
+    assert [r.count for r in encs] == [16] * 4
+    assert all(r.parent is not None and r.parent.name == "ldpc.sweep.dispatch"
+               for r in encs)

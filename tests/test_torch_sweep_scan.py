@@ -81,15 +81,21 @@ def test_scan_steps_checkpoint_resume(tmp_path):
         assert (a.frames, a.be, a.fe) == (b.frames, b.be, b.fe)
 
 
-def test_scan_steps_coded_path_unaffected():
-    # the coded path dispatches one batch at a time whatever scan_steps
-    # says (as in JAX): the same counters batch for batch
-    kw = dict(encoder="gf2", max_frames=128, snr_max=1.0)
+@pytest.mark.parametrize("code,encoder,batch,iters", [
+    ("576x288", "gf2", 128, 5),
+    ("16200x7560", "staircase", 8, 2),
+])
+def test_scan_steps_coded_path_folded(code, encoder, batch, iters):
+    # the coded path folds scan_steps batches a dispatch too, each batch
+    # drawing its info bits, then its noise, from its own seed: a budget
+    # of one group gives the same counters at S = 1 and S = 4
+    kw = dict(code=code, encoder=encoder, batch=batch, iters=iters,
+              max_frames=4 * batch, snr_max=1.0)
     a = run_sweep(_cfg(**kw), progress=False)
     b = run_sweep(_cfg(scan_steps=4, **kw), progress=False)
     for pa, pb in zip(a.points, b.points):
         assert (pa.frames, pa.be, pa.fe) == (pb.frames, pb.be, pb.fe) \
-            and pa.frames == 128
+            and pa.frames == 4 * batch and pa.fe > 0
 
 
 def test_scan_steps_loop_on_the_cpu():
