@@ -11,7 +11,8 @@ DVB-S2 QC views and synthqc (``streamed_minsum``); the probes of the
 card's ceilings (``probes.cu``: ``probe_mix``, ``probe_peak``,
 ``probe_copy``), the roll probe (``roll_probe.cu``: ``probe_roll``) and
 the channel's and the count's kernels (``channel_count.cu``:
-``awgn_quantize``, ``count_errors``).
+``awgn_quantize``, ``count_errors``) and the accumulate encoders' kernel
+(``encoder.cu``: ``accumulate_encode``).
 Prints what the decode kernels compile to (SASS instructions per edge
 update, registers, stack, spills).  Holds the QC kernel against the
 committed golden vectors, and each kernel against its plain PyTorch
@@ -68,7 +69,10 @@ launches; (phase 27) the channel's and the count's kernels at the two
 sweep cells' shapes (64800x32400 B=512, 4000x2000 B=4096) against the
 chain of PyTorch operations they replace, byte for byte, with their
 times beside their bounds and the chain's, and 16 launches of each a
-graph replay of 16 sweep batches.
+graph replay of 16 sweep batches; their coded forms and the accumulate
+encoders' kernel (``encoder.cu``: ``accumulate_encode``) the same at the
+coded cell's shape (16200x10800 B=512), with one launch of each a batch
+of a coded sweep.
 Imports nothing of JAX.  Exits non-zero, before printing any result, when
 there is no CUDA device or the package is not beside this script; any
 failing phase exits non-zero.  The last line of standard output is
@@ -590,16 +594,19 @@ def _coded_paths(dev, smi):
     channel BER, launches counted, and the coded rate beside the fake
     encoder's at the same code and batch, both by the point's own clock
     (``SnrPoint.mbps``: the encoder's set-up, a GF(2) elimination, is
-    outside it).  Returns {kernel: launches}."""
+    outside it); the table and staircase encoders launch their kernel
+    once a batch.  Returns {kernel: launches}."""
     import torch
 
     from ldpcgputegra_tpu_torch.channel.awgn import AwgnChannel
     from ldpcgputegra_tpu_torch.codes.registry import load_code
     from ldpcgputegra_tpu_torch.kernels import channel as C
+    from ldpcgputegra_tpu_torch.kernels import encoder as KE
     from ldpcgputegra_tpu_torch.kernels import gather as G
     from ldpcgputegra_tpu_torch.kernels import streamed as S
 
-    launches = {"streamed_minsum": 0, "gather_minsum": 0}
+    launches = {"streamed_minsum": 0, "gather_minsum": 0,
+                "accumulate_encode": 0}
     for name, B, enc, snr, n_batches, mod, key in (
             ("64800x32400", 512, "staircase", 1.5, 8, S, "streamed_minsum"),
             ("4000x2000", 4096, "gf2", 2.0, 16, G, "gather_minsum"),
@@ -613,6 +620,7 @@ def _coded_paths(dev, smi):
         for e in (enc, "fake", enc):
             mod.launches[key] = 0
             coded0 = C.launches["awgn_quantize_coded"]
+            enc0 = KE.launches["accumulate_encode"]
             (p,), wall, _ = _timed_sweep(_sweep_cfg(
                 code=name, batch=B, snr_min=snr, snr_max=snr, encoder=e,
                 max_frames=n_batches * B))
@@ -623,6 +631,11 @@ def _coded_paths(dev, smi):
                 # the channel on coded bits is the coded kernel, a batch each
                 assert (C.launches["awgn_quantize_coded"] - coded0
                         == mod.launches[key]), f"{name}: the coded channel"
+                # the table and staircase encoders: the kernel, a batch each
+                encoded = KE.launches["accumulate_encode"] - enc0
+                assert encoded == mod.launches[key] * (e != "gf2"), \
+                    f"{name}: the encoder's kernel"
+                launches["accumulate_encode"] += encoded
             rate.setdefault(e, []).append(p.mbps)
             print(f"[coded] {name} B={B} {e} {snr} dB: {p.frames} frames, "
                   f"FE={p.fe} FER={p.fer:.4e} BER={p.ber:.4e} (raw channel "
@@ -1210,7 +1223,7 @@ def _channel_chain(chan, gen, bits):
                      chan.spec)
 
 
-def _channel_count(dev, hbm, smi, main_launches):
+def _channel_count(dev, hbm, smi, main_launches, coded_encodes):
     """Phase 27: the channel's and the count's kernels
     (``kernels/channel.py``, ``csrc/channel_count.cu``; they replace no
     TPU kernel: the JAX package left this chain to XLA's fusion), the
@@ -1231,7 +1244,14 @@ def _channel_count(dev, hbm, smi, main_launches):
     (``main_launches``, by code: the sweep and the CLI at 4000x2000 and
     at 64800x32400), the coded forms' those of a coded sweep of the coded
     cell's traffic here, and ``launches_replay`` those of one replay of
-    the last graph of each."""
+    the last graph of each.  Then the accumulate encoders' kernel
+    (``kernels/encoder.py``, ``csrc/encoder.cu``; it replaces no TPU
+    kernel: the JAX package encodes with NumPy on the host) at the coded
+    cell's shape: byte for byte against its plain version (the chain of
+    PyTorch operations it replaced), its time beside its bound (the info
+    bytes read and the codewords written) and the chain's, a launch a
+    batch of the coded sweep and 16 a replay; its row's ``launches_coded``
+    are those of phase 20's coded sweeps (``coded_encodes``)."""
     import torch
 
     from ldpcgputegra_tpu_torch.bench import sass
@@ -1242,6 +1262,7 @@ def _channel_count(dev, hbm, smi, main_launches):
     from ldpcgputegra_tpu_torch.codes.registry import load_code
     from ldpcgputegra_tpu_torch.decoder import make_decoder
     from ldpcgputegra_tpu_torch.kernels import channel as C
+    from ldpcgputegra_tpu_torch.kernels import encoder as KE
     from ldpcgputegra_tpu_torch.kernels import streamed as S
     from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec
     from ldpcgputegra_tpu_torch.sim.analyzer import count_errors_async
@@ -1300,7 +1321,7 @@ def _channel_count(dev, hbm, smi, main_launches):
               f"{replay} a replay (the capture's warm-up batch "
               f"one more), counts equal to eager: BE, FE "
               f"{out.sum(0).tolist()}")
-        return replay
+        return replay, scan
 
     forms = {"awgn_quantize": "awgn_quantize_coded",
              "count_errors": "count_errors_ref"}
@@ -1353,7 +1374,7 @@ def _channel_count(dev, hbm, smi, main_launches):
                                                     device=dev))
         timed(shape, "count_errors", B * code.N, count_errors_async,
               lambda x: C.count_errors_plain(x, code.N), decoded)
-        replay = graphed(name, B, chan, lambda g: torch.stack(
+        replay, _ = graphed(name, B, chan, lambda g: torch.stack(
             count_errors_async(dec(chan.generate_zero_int8(g, B))[0])), forms)
 
     # the coded forms at the coded sweep cell's shape: the table encoder's
@@ -1426,13 +1447,41 @@ def _channel_count(dev, hbm, smi, main_launches):
         return torch.stack(count_errors_async(
             decoded, reference=bits.view(torch.uint8), info_only=True, k=K))
 
-    coded_replay = graphed(name, B, chan, coded_step, forms.values())
+    coded_replay, scan = graphed(name, B, chan, coded_step, forms.values())
+    enc_replay = scan.replayed(KE.launches)
+    assert enc_replay == {"accumulate_encode": 16}, enc_replay
+
+    # the encoder's kernel: its plain version is the chain it replaced
+    row_ptr, cols = enc._on(dev, enc._row_ptr, enc._cols)
+    infos = [generate_info_bits(chan.generator(2850 + i), B, K)
+             for i in range(3)]
+    err["accumulate_encode"] = max(
+        diff(KE.accumulate_encode(u, row_ptr, cols, code.N),
+             KE.accumulate_plain(u, row_ptr, cols, code.N)) for u in infos)
+    assert not err["accumulate_encode"], err
+    t_k, by_k = _device_us(
+        lambda u: KE.accumulate_encode(u, row_ptr, cols, code.N), infos)
+    t_p, by_p = _device_us(
+        lambda u: KE.accumulate_plain(u, row_ptr, cols, code.N), infos)
+    nbytes = B * (K + code.N)  # the info bytes read, the codewords written
+    enc_at = {"ms": t_k / 1e3, "plain_ms": t_p / 1e3,
+              "bound_ms": nbytes / TABLE_HBM_BYTES_PER_S * 1e3,
+              "probed_bound_ms": nbytes / hbm * 1e3}
+    print(f"[encoder] accumulate_encode {name} B={B}: "
+          f"{ {k: round(v * 1e3, 2) for k, v in enc_at.items()} } (us); "
+          f"{enc_at['ms'] / enc_at['bound_ms']:.2f}x the bound at the data "
+          f"sheet's rate; the chain {enc_at['plain_ms'] / enc_at['ms']:.1f}x "
+          f"the kernel; by name {by_k} | {smi}")
+    print(f"[encoder] the chain by name: "
+          f"{ {k: round(v, 2) for k, v in by_p.items()} } (us)")
+
     # the main path of the coded cell's traffic: run_sweep with the table
-    # encoder, 16 batches a graph replay; one launch of each coded form a
-    # K2 launch, and none of the zero forms
+    # encoder, 16 batches a graph replay; one launch of each coded form and
+    # of the encoder's kernel a K2 launch, and none of the zero forms
     for k in C.launches:
         C.launches[k] = 0
     S.launches["streamed_minsum"] = 0
+    KE.launches["accumulate_encode"] = 0
     (p,), _, _ = _timed_sweep(_sweep_cfg(
         code=name, batch=B, snr_min=snr, snr_max=snr, encoder="table",
         count_bits="info", scan_steps=16, pipeline_depth=2,
@@ -1445,6 +1494,10 @@ def _channel_count(dev, hbm, smi, main_launches):
           f"streamed_minsum {k2}, {p.mbps:.1f} coded Mbit/s | {smi}")
     assert k2 > 0 and coded_launches == {
         k: k2 * (k in forms.values()) for k in coded_launches}, coded_launches
+    encoded = KE.launches["accumulate_encode"]
+    assert encoded == k2, (encoded, k2)
+    print(f"[encoder] {name} B={B} coded sweep: accumulate_encode {encoded} "
+          f"launches, one a batch")
     main_launches = {**{k: {c: n[k] for c, n in main_launches.items()}
                         for k in forms},
                      **{k: {name: coded_launches[k]} for k in forms.values()}}
@@ -1464,6 +1517,17 @@ def _channel_count(dev, hbm, smi, main_launches):
             "bound_by": "bytes", "probed_bound_ms": first["probed_bound_ms"],
             "library_ms": None, "at": at,
         })
+    kernels.append({
+        "name": "accumulate_encode", "route": "cuda",
+        "source": "ldpcgputegra_tpu_torch/csrc/encoder.cu",
+        "replaces": KE.REPLACES, "launches": encoded,
+        "launches_by_code": {name: encoded},
+        "launches_coded": coded_encodes,
+        "launches_replay": enc_replay["accumulate_encode"],
+        "max_abs_err": err["accumulate_encode"], **enc_at,
+        "bound_by": "bytes", "library_ms": None,
+        "at": {f"{name} B={B}": enc_at},
+    })
     return kernels
 
 
@@ -1483,6 +1547,7 @@ def main() -> int:
     from ldpcgputegra_tpu_torch.decoder import backend_for, effective_code
     from ldpcgputegra_tpu_torch.kernels import _lib
     from ldpcgputegra_tpu_torch.kernels import channel as C
+    from ldpcgputegra_tpu_torch.kernels import encoder as KE
     from ldpcgputegra_tpu_torch.kernels import gather as G
     from ldpcgputegra_tpu_torch.kernels import layered as K
     from ldpcgputegra_tpu_torch.kernels import streamed as S
@@ -1516,13 +1581,14 @@ def main() -> int:
     # (algorithm, minclamp) pair, all started together
     decode_kernels = {"layered_minsum": K, "gather_minsum": G,
                       "streamed_minsum": S}
-    with ThreadPoolExecutor(3 + 3 * len(_lib.PAIRS)) as pool:
+    with ThreadPoolExecutor(4 + 3 * len(_lib.PAIRS)) as pool:
         builds = {**{f"{name} {a}/{m}": pool.submit(mod.build, a, m)
                      for name, mod in decode_kernels.items()
                      for a, m in _lib.PAIRS},
                   "probes": pool.submit(V.build),
                   "roll_probe": pool.submit(P.build),
-                  "channel_count": pool.submit(C.build)}
+                  "channel_count": pool.submit(C.build),
+                  "encoder": pool.submit(KE.build)}
         builds = {name: f.result() for name, f in builds.items()}
     for name, info in builds.items():
         print(f"[build] {name}: {os.path.relpath(info['path'], HERE)} in "
@@ -1860,8 +1926,10 @@ def main() -> int:
     # 27. the channel's and the count's kernels, the zero forms at the two
     # sweep cells' shapes and the coded forms at the coded cell's: against
     # the chain of PyTorch operations, their time beside their bound and
-    # the chain's, 16 launches of each a graph replay
-    channel_rows = _channel_count(dev, rates["hbm"], smi, c_launches)
+    # the chain's, 16 launches of each a graph replay; the same for the
+    # accumulate encoders' kernel at the coded cell's shape
+    channel_rows = _channel_count(dev, rates["hbm"], smi, c_launches,
+                                  coded_launch["accumulate_encode"])
     phase_done(27)
 
     # "route" is how the kernel is written (CUDA C++); "backend" is the

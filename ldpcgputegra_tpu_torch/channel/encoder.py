@@ -13,21 +13,24 @@ info bits' device.
 * ``GF2Encoder`` — any code, by one-time GF(2) Gauss-Jordan elimination.
 
 The tables are built once in NumPy, as in the JAX package, and copied to a
-device at its first encode there.  Encoding runs on that device in
-PyTorch: the accumulate and staircase forms are an ``index_add_`` of info
-bits into parity sums, then a running XOR as a cumulative sum taken mod 2;
-GF(2) is ``u @ S^T mod 2`` as a float64 matrix product, exact (its sums
-stay far below 2^53; TF32 would round them).  The JAX package encodes
-with NumPy on the host (or its native C++ where built, with the same
-outputs); the results are equal bit for bit on the same info bits.
+device at its first encode there.  Encoding runs on that device: the
+accumulate and staircase forms share one parity table, each row's info
+bits in CSR form (``kernels/encoder.py::parity_table``), and one call,
+``kernels/encoder.py::accumulate_encode`` (on the card one kernel, on the
+CPU an ``index_add_`` of info bits into parity sums, then a running XOR as
+a cumulative sum taken mod 2); GF(2) is ``u @ S^T mod 2`` as a float64
+matrix product, exact (its sums stay far below 2^53; TF32 would round
+them).  The JAX package encodes with NumPy on the host (or its native C++
+where built, with the same outputs); the results are equal bit for bit on
+the same info bits.
 
 An encode queues its operations with no host synchronisation and no
 shape that depends on the data, so a CUDA graph captures it once the
-tables are on the card (the sweep's eager warm-up batch copies them).
-``Encoder.encode`` runs in the span ``ldpc.encode`` (count: the frames)
-and adds one to ``encodes[kind]``; the accumulate table's scatter is
-built at set-up in the span ``ldpc.encoder.build`` (count: the scatter
-pairs).
+tables are on the card (the sweep's eager warm-up batch copies them and
+loads the kernel's library).  ``Encoder.encode`` runs in the span
+``ldpc.encode`` (count: the frames) and adds one to ``encodes[kind]``;
+the table encoder's parity table is built at set-up in the span
+``ldpc.encoder.build`` (count: the table's pairs).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch
 
 from ..codes.code import LdpcCode
 from ..codes.registry import DATA_DIR
+from ..kernels.encoder import accumulate_encode, parity_table
 from ..utils.profiling import span
 
 __all__ = [
@@ -108,18 +112,22 @@ class FakeEncoder(Encoder):
                            device=info_bits.device)
 
 
-def _accumulate(u: torch.Tensor, pos: torch.Tensor, bit: torch.Tensor,
-                n: int, k: int) -> torch.Tensor:
-    """The accumulate form: parity sum ``pos[e]`` += ``u[:, bit[e]]`` for
-    every scatter pair e, then the staircase chain p_i ^= p_{i-1} (a
-    running sum taken mod 2); returns the codeword [B, N] int8."""
-    s = torch.zeros((u.shape[0], n - k), dtype=torch.int32, device=u.device)
-    s.index_add_(1, pos, u[:, bit].to(torch.int32))
-    par = (s.cumsum(1) & 1).to(torch.int8)
-    return torch.cat([u.to(torch.int8), par], dim=1)
+class _AccumulateEncoder(Encoder):
+    """The accumulate form: parity p_j = p_{j-1} ^ XOR(info bits of row j),
+    from the parity table ``(_row_ptr, _cols)`` that a subclass builds
+    (``kernels/encoder.py::parity_table``)."""
+
+    _row_ptr: np.ndarray
+    _cols: np.ndarray
+
+    def _encode(self, info_bits: torch.Tensor) -> torch.Tensor:
+        self._check(info_bits)
+        row_ptr, cols = self._on(info_bits.device, self._row_ptr, self._cols)
+        return accumulate_encode(info_bits.to(torch.int8).contiguous(),
+                                 row_ptr, cols, self.n)
 
 
-class QCAccumulateEncoder(Encoder):
+class QCAccumulateEncoder(_AccumulateEncoder):
     """DVB-S2-style QC accumulator from a runtime table.
 
     Table semantics follow ``GenericEncoder::encode``: info bits are walked
@@ -136,7 +144,7 @@ class QCAccumulateEncoder(Encoder):
         self.lines = [np.asarray(l, dtype=np.int64) for l in lines]
         if len(self.lines) * m != k:
             raise ValueError("table does not cover K info bits")
-        # per info bit x, its scatter positions, flattened
+        # per info bit x, its parity positions, then grouped by parity row
         with span("encoder.build") as sp:
             pos_list, bit_list = [], []
             nmk = n - k
@@ -146,9 +154,9 @@ class QCAccumulateEncoder(Encoder):
                     p = (line + (x % m) * q) % nmk
                     pos_list.append(p)
                     bit_list.append(np.full(p.size, x, dtype=np.int64))
-            self._scatter_pos = np.concatenate(pos_list)
-            self._scatter_bit = np.concatenate(bit_list)
-            sp.count = self._scatter_pos.size
+            self._row_ptr, self._cols = parity_table(
+                np.concatenate(pos_list), np.concatenate(bit_list), nmk, k)
+            sp.count = self._cols.size
 
     @staticmethod
     def from_json(path: str) -> "QCAccumulateEncoder":
@@ -157,12 +165,6 @@ class QCAccumulateEncoder(Encoder):
         return QCAccumulateEncoder(
             doc["N"], doc["K"], doc["Q"], doc["M"], doc["rows"]
         )
-
-    def _encode(self, info_bits: torch.Tensor) -> torch.Tensor:
-        self._check(info_bits)
-        pos, bit = self._on(info_bits.device, self._scatter_pos,
-                            self._scatter_bit)
-        return _accumulate(info_bits, pos, bit, self.n, self.k)
 
 
 def _check_rows_in_parity_order(code: LdpcCode) -> Optional[list]:
@@ -194,7 +196,7 @@ def _check_rows_in_parity_order(code: LdpcCode) -> Optional[list]:
     return rows_info
 
 
-class StaircaseEncoder(Encoder):
+class StaircaseEncoder(_AccumulateEncoder):
     """Encoder derived from H itself for dual-diagonal parity codes.
 
     Parity ``p_i`` satisfies ``p_i = p_{i-1} ^ XOR(info VNs of row i)``, a
@@ -211,15 +213,9 @@ class StaircaseEncoder(Encoder):
             raise ValueError(f"{code.name}: parity part is not staircase")
         self.n, self.k = code.N, code.K
         lens = np.asarray([r.size for r in rows_info])
-        self._row_idx = (np.concatenate(rows_info).astype(np.int64)
-                         if lens.sum() else np.empty(0, np.int64))
-        self._row_of_edge = np.repeat(np.arange(len(rows_info)), lens)
-
-    def _encode(self, info_bits: torch.Tensor) -> torch.Tensor:
-        self._check(info_bits)
-        pos, bit = self._on(info_bits.device, self._row_of_edge,
-                            self._row_idx)
-        return _accumulate(info_bits, pos, bit, self.n, self.k)
+        self._row_ptr, self._cols = parity_table(
+            np.repeat(np.arange(len(rows_info)), lens),
+            np.concatenate(rows_info), len(rows_info), self.k)
 
 
 class GF2Encoder(Encoder):

@@ -49,9 +49,10 @@ def _launch_counters() -> list[dict]:
     the encoders' (``channel/encoder.py::encodes``)."""
     from ..channel import encoder
     from ..kernels import channel, gather, layered, streamed
+    from ..kernels import encoder as encoder_kernel
 
     return [layered.launches, gather.launches, streamed.launches,
-            channel.launches, encoder.encodes]
+            channel.launches, encoder_kernel.launches, encoder.encodes]
 
 
 class ScanSteps:
