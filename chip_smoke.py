@@ -72,7 +72,12 @@ times beside their bounds and the chain's, and 16 launches of each a
 graph replay of 16 sweep batches; their coded forms and the accumulate
 encoders' kernel (``encoder.cu``: ``accumulate_encode``) the same at the
 coded cell's shape (16200x10800 B=512), with one launch of each a batch
-of a coded sweep.
+of a coded sweep; (phase 28) the two-phase sweep (``SweepConfig.et =
+"twophase"``) at 2304x1152 B=8192, 3.0 dB, k1 5, 16 batches a graph
+replay: each batch's (BE, FE, unconverged) against the eager two-phase
+decoder's on the same seeds, at a tail of 256 and at a tail of 16 that
+every batch overflows (each repaired at its fetch), with K1's launches
+and its masked launches counted.
 Imports nothing of JAX.  Exits non-zero, before printing any result, when
 there is no CUDA device or the package is not beside this script; any
 failing phase exits non-zero.  The last line of standard output is
@@ -485,6 +490,67 @@ def _twophase_path(dev, smi, alu_rate):
               f"and full decodes")
     assert fagg["overflows"] == 0
     return n_launch, t_mask, t_off
+
+
+def _twophase_sweep(dev, smi):
+    """The two-phase sweep at 2304x1152 B=8192, 3.0 dB, k1 5, S=16: every
+    batch's counts against the eager two-phase decoder's, at a tail of
+    256 and at one of 16 that every batch overflows; K1's launches (two a
+    batch, two more a repair, two for the warm-up before the capture) and
+    its masked launches (one a batch, one a repair, one warm-up).
+    Returns the launches of the tail-256 sweep."""
+    import torch
+
+    from ldpcgputegra_tpu_torch.channel.awgn import AwgnChannel
+    from ldpcgputegra_tpu_torch.codes.registry import load_code
+    from ldpcgputegra_tpu_torch.decoder import twophase
+    from ldpcgputegra_tpu_torch.kernels import layered as K
+    from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec
+    from ldpcgputegra_tpu_torch.sim.analyzer import count_errors
+    from ldpcgputegra_tpu_torch.sim.sweep import batch_seed, run_sweep
+
+    code, B = load_code("2304x1152"), 8192
+    tp = twophase.make_twophase_decoder(
+        code, LayeredSpec(algo="OMS", iters=10), k1=5, device=dev)
+    chan = AwgnChannel(code.N, code.K, device=dev)
+    chan.configure(3.0)
+    first = None
+    for tail, n_batches in ((256, 64), (16, 32)):
+        rows = {}
+        before = dict(twophase.stats)
+        l0 = dict(K.launches)
+        cfg = _sweep_cfg(code="2304x1152", batch=B, snr_min=3.0,
+                         snr_max=3.0, max_frames=n_batches * B,
+                         pipeline_depth=1, scan_steps=16, et="twophase",
+                         twophase_k1=5, twophase_tail=tail)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (p,) = run_sweep(cfg, progress=False,
+                         on_counts=lambda pi, k, r: rows.update(
+                             {k + j: tuple(x) for j, x in enumerate(r)})
+                         ).points
+        wall = time.perf_counter() - t0
+        launches = {k: K.launches[k] - l0[k] for k in l0}
+        delta = {k: twophase.stats[k] - before[k] for k in before}
+        for k, row in rows.items():
+            bits, st = tp(chan.generate_zero_int8(
+                chan.generator(batch_seed(cfg.seed, 0, k)), B))
+            assert row == (*count_errors(bits), st["phase2_frames"]), (
+                f"batch {k}: the sweep's {row}, the eager decoder's")
+        reps = delta["repairs"]
+        assert p.batches == len(rows) == n_batches == delta["batches"]
+        assert reps == sum(r[2] > tail for r in rows.values())
+        assert (tail == 16) == (reps == n_batches), delta
+        assert launches == {"layered_minsum": 2 * (n_batches + reps + 1),
+                            "layered_minsum_mask": n_batches + reps + 1}, (
+            launches)
+        print(f"[twophase-sweep] 2304x1152 B={B} 3.0 dB k1=5 tail={tail} "
+              f"S=16: {n_batches} batches equal to the eager two-phase "
+              f"decoder's (BE, FE, unconverged); {delta}; K1 launches "
+              f"{launches}; {p.frames * code.N / wall / 1e6:.1f} coded "
+              f"Mbit/s over {wall:.3f} s with the capture | {smi}")
+        first = first or launches["layered_minsum"]
+    return first
 
 
 def _sweep_cfg(**kw):
@@ -1932,6 +1998,11 @@ def main() -> int:
                                   coded_launch["accumulate_encode"])
     phase_done(27)
 
+    # 28. the two-phase sweep, graphed, against the eager two-phase
+    # decoder, with and without repairs
+    tps_launch = _twophase_sweep(dev, smi)
+    phase_done(28)
+
     # "route" is how the kernel is written (CUDA C++); "backend" is the
     # decoder backend that ``auto`` resolves to on the path it was driven
     # on; no one PyTorch call computes a layered min-sum decode, so its
@@ -1952,7 +2023,9 @@ def main() -> int:
         # K1's row: its launches on the two-phase path, its largest
         # disagreement over bits, iters_used and ok, and its time at k1=5
         # with and without the mask
-        mask = ({"launches_twophase": tp_launch, "mask_ms": t_mask * 1e3,
+        mask = ({"launches_twophase": tp_launch,
+                 "launches_twophase_sweep": tps_launch,
+                 "mask_ms": t_mask * 1e3,
                  "mask_off_ms": t_mask_off * 1e3,
                  "launches_scan": scan_launch,
                  "launches_stream": stream_launch,

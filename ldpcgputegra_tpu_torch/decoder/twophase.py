@@ -24,6 +24,23 @@ order; not a 2-D cumsum and searchsorted), the merge an ``index_copy_``
 per bucket: ``warm_buckets`` and ``warm_fused`` keep their names and return
 values and build the kernels and fill the allocator's pools outside a
 timed window.  The merge writes into phase 1's bits in place.
+
+``decode.step(llr, tail)`` is one batch with phase 2 at a fixed ``tail``
+and no host read (the merged bits and the unconverged count, both on the
+device), so that a CUDA graph can capture it: the sweep's two-phase mode
+(``sim/sweep.py``, ``SweepConfig.et = "twophase"``) runs it S batches a
+replay.  A batch whose count exceeds the tail kept some unconverged
+frames' k1-iteration bits; ``decode.repair(llr, n_bad)`` decodes it again
+exactly (phase 1, then phase 2 on all ``n_bad`` unconverged frames), as
+``decode.pipelined_fused`` does after its one read of a window's counts.
+
+While a profiler runs, phase 1 records the span ``ldpc.twophase.phase1``
+(count: frames) and phase 2 ``ldpc.twophase.phase2`` (count: its batch),
+``utils/profiling.py``; under a graph's capture they are recorded once.
+``stats`` counts what the sweep's fetches read: ``batches``, ``frames``,
+``unconverged`` (frames phase 1 left), ``tail_frames`` (phase 2's batch,
+summed), ``repairs`` (batches decoded again) and ``repaired_frames`` (the
+frames those repairs decoded at the full budget).
 """
 
 from __future__ import annotations
@@ -35,8 +52,26 @@ import torch
 
 from ..codes.code import LdpcCode
 from ..ops.layered import LayeredSpec
+from ..utils.profiling import span
 
-__all__ = ["make_twophase_decoder", "syndrome_fn"]
+__all__ = ["make_twophase_decoder", "syndrome_fn", "stats", "tally"]
+
+# The two-phase sweep's counters, added to on the host from each fetched
+# group's counts (``tally``), with no synchronisation of their own.
+stats = {"batches": 0, "frames": 0, "unconverged": 0, "tail_frames": 0,
+         "repairs": 0, "repaired_frames": 0}
+
+
+def tally(batch: int, tail: int, unconverged, repaired) -> None:
+    """Add a fetched group to ``stats``: ``unconverged``, each batch's
+    unconverged count; ``repaired``, the counts of the batches decoded
+    again (those above ``tail``, phase 2's batch)."""
+    stats["batches"] += len(unconverged)
+    stats["frames"] += batch * len(unconverged)
+    stats["unconverged"] += sum(unconverged)
+    stats["tail_frames"] += tail * len(unconverged)
+    stats["repairs"] += len(repaired)
+    stats["repaired_frames"] += sum(repaired)
 
 
 def syndrome_fn(code: LdpcCode, device=None):
@@ -81,7 +116,8 @@ def make_twophase_decoder(
     ``spec.iters`` is the full budget; ``spec.early_term`` is ignored (the
     two phases are the early termination).  ``decode.pipelined``,
     ``decode.pipelined_fused``, ``decode.warm_buckets`` and
-    ``decode.warm_fused`` are as in the JAX package.
+    ``decode.warm_fused`` are as in the JAX package; ``decode.step`` and
+    ``decode.repair`` are the module docstring's.
     """
     from . import default_device, make_decoder
 
@@ -98,19 +134,36 @@ def make_twophase_decoder(
     def phase1(llr):
         """The k1-iteration decode, its mask and the unconverged count (on
         the device)."""
-        bits, _, ok = dec1(llr)
-        return bits, ok, (~ok).sum()
+        with span("twophase.phase1", count=llr.shape[0]):
+            bits, _, ok = dec1(llr)
+            return bits, ok, (~ok).sum()
 
     def phase2(llr, bits, ok, te: int):
         """Decode the first ``te`` frames of the unconverged-first order at
         the full budget and write the unconverged ones into ``bits``; rows
         past the count are converged frames, which keep their bits."""
-        gat = torch.sort(ok.to(torch.uint8), stable=True).indices[:te]
-        tail_bits, _ = dec2(llr.index_select(0, gat))
-        keep = ok.index_select(0, gat)[:, None]
-        bits.index_copy_(0, gat, torch.where(keep, bits.index_select(0, gat),
-                                             tail_bits))
-        return bits
+        with span("twophase.phase2", count=te):
+            gat = torch.sort(ok.to(torch.uint8), stable=True).indices[:te]
+            tail_bits, _ = dec2(llr.index_select(0, gat))
+            keep = ok.index_select(0, gat)[:, None]
+            bits.index_copy_(0, gat, torch.where(
+                keep, bits.index_select(0, gat), tail_bits))
+            return bits
+
+    def step(llr, tail: int):
+        """One batch, phase 2 at the fixed ``tail`` (at most the batch):
+        (bits, the unconverged count), both on the device, with no host
+        read.  Where the count exceeds the tail, some unconverged frames
+        keep their k1-iteration bits: ``repair`` gives the exact bits."""
+        bits, ok, cnt = phase1(llr)
+        return phase2(llr, bits, ok, min(tail, llr.shape[0])), cnt
+
+    def repair(llr, n_bad: int):
+        """The exact two-phase bits of a batch whose unconverged count
+        ``n_bad`` (what ``step`` returned for it) is known: phase 1 again,
+        then phase 2 on all ``n_bad`` unconverged frames."""
+        bits, ok, _ = phase1(llr)
+        return phase2(llr, bits, ok, n_bad) if n_bad else bits
 
     def _cap(b: int) -> int:
         return -(-b // tail_pad) * tail_pad
@@ -176,16 +229,14 @@ def make_twophase_decoder(
         return outs, agg
 
     def decode_pipelined_fused(llrs, tail: int = None):
-        """Like ``pipelined``, but each batch's phase 1, compaction, phase 2
-        at the fixed tail ``tail`` (default ``tail_pad``) and merge are
-        queued with no host read; after the window's one read of the
-        counts, a batch whose count overflowed the tail is decoded again
-        at the full budget.  Returns (outs, aggregate stats)."""
+        """Like ``pipelined``, but each batch is a ``step`` at the fixed
+        tail ``tail`` (default ``tail_pad``), queued with no host read;
+        after the window's one read of the counts, a batch whose count
+        overflowed the tail is repaired (``repair``).  Returns (outs,
+        aggregate stats); the stats charge a repair as the JAX package
+        does, the whole batch at the full budget."""
         t = tail if tail is not None else tail_pad
-        staged = []
-        for x in llrs:
-            bits, ok, cnt = phase1(x)
-            staged.append((phase2(x, bits, ok, min(t, x.shape[0])), cnt))
+        staged = [step(x, t) for x in llrs]
         cnts = torch.stack([c for _, c in staged]).tolist()
         outs = []
         agg = {"phase2_frames": 0, "phase2_batch": 0, "frames": 0,
@@ -197,10 +248,10 @@ def make_twophase_decoder(
             agg["phase2_frames"] += n_bad
             agg["phase2_batch"] += te
             agg["frames"] += b
-            if n_bad > te:  # the tail overflowed: decode again, full budget
+            if n_bad > te:  # the tail overflowed: decode again
                 agg["overflows"] += 1
                 extra_full += b
-                outs.append(dec2(x)[0])
+                outs.append(repair(x, n_bad))
             else:
                 outs.append(out)
         agg["eff_iters_per_frame"] = (
@@ -212,6 +263,8 @@ def make_twophase_decoder(
         decode_pipelined_fused([llr], tail)
         _sync()
 
+    decode.step = step
+    decode.repair = repair
     decode.warm_buckets = warm_buckets
     decode.pipelined = decode_pipelined
     decode.pipelined_fused = decode_pipelined_fused

@@ -66,8 +66,9 @@ TILES = (32, 16, 8, 4)  # codewords per CTA
 ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
 
 # Kernel launches in this process, by kernel name: the decoder adds one
-# where it launches the kernel, and nowhere else.
-launches = {"layered_minsum": 0}
+# where it launches the kernel, and nowhere else; those with the mask
+# (``emit_mask``) count under "layered_minsum_mask" too.
+launches = {"layered_minsum": 0, "layered_minsum_mask": 0}
 
 
 def pack(code: LdpcCode) -> int:
@@ -165,8 +166,9 @@ def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec(),
 
     On a CUDA tensor the decoder launches the kernel (``_lib.make_decode``:
     the current stream, no host synchronisation, the spans ``ldpc.decode``
-    and ``ldpc.decode.pick``); ``iters_used`` is a 0-d int32 tensor on the
-    card.  On a CPU tensor it runs the plain version.
+    and ``ldpc.decode.pick``; with ``emit_mask`` each launch is counted
+    under ``launches["layered_minsum_mask"]`` too); ``iters_used`` is a 0-d
+    int32 tensor on the card.  On a CPU tensor it runs the plain version.
     """
     if spec.algo not in _lib.ALGO:
         raise ValueError(f"unknown algo {spec.algo!r}")
@@ -206,8 +208,18 @@ def make_cuda_decoder(code: LdpcCode, spec: LayeredSpec = LayeredSpec(),
 
         return decode
 
-    return _lib.make_decode(
+    decode = _lib.make_decode(
         code, spec, "layered_minsum", ARGTYPES, launches,
         tables=lambda dev: qc_tables(code, dev), pick_tile=lambda: pick_tile,
         pick_args=(), launch=launch,
         plain=plain_with_mask if emit_mask else None)
+    if not emit_mask:
+        return decode
+
+    def decode_mask(llr: torch.Tensor):
+        out = decode(llr)
+        if llr.device.type == "cuda":
+            launches["layered_minsum_mask"] += 1
+        return out
+
+    return decode_mask

@@ -39,6 +39,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="2NMS second factor in 1/32 units")
     g.add_argument("--no-early-term", dest="early_term", action="store_false",
                    help="disable syndrome early termination")
+    g.add_argument("--et", default="kernel", choices=["kernel", "twophase"],
+                   help="kernel = each decoder's own early termination; "
+                        "twophase = two-phase early termination (--k1 "
+                        "iterations on every frame, the full budget on a "
+                        "fixed tail of the unconverged ones; --no-early-term "
+                        "is then ignored)")
+    g.add_argument("--k1", dest="twophase_k1", type=int, default=5,
+                   help="with --et twophase: phase 1's iterations")
+    g.add_argument("--tail", dest="twophase_tail", type=int, default=256,
+                   help="with --et twophase: phase 2's batch (frames); a "
+                        "batch with more unconverged frames is decoded "
+                        "again at the fetch")
     g.add_argument("--minclamp", default="pre", choices=["pre", "post"],
                    help="pre = x86 scalar oracle semantics, post = GPU kernels")
     g.add_argument("--schedule", default="auto",
@@ -215,6 +227,16 @@ def _print_info(cfg: SweepConfig) -> None:
         print(f"(II) backend      : none ({e})")
         return
     print(f"(II) backend      : {backend}")
+    two_phase = cfg.et == "twophase"
+    if two_phase:
+        print(f"(II) early term.  : two-phase, phase 1 at {cfg.twophase_k1} "
+              f"iterations with the convergence mask on all {cfg.batch} "
+              f"frames, phase 2 at {cfg.iters} on a tail of "
+              f"{min(cfg.twophase_tail, cfg.batch)} frames (a batch with "
+              "more unconverged frames decoded again at the fetch)")
+    else:
+        print(f"(II) early term.  : the kernel's own "
+              f"({'on' if cfg.early_term else 'off'})")
     if cfg.scan_steps > 1:
         how = ("one CUDA graph captured at the first dispatch, one replay "
                "a dispatch" if device.type == "cuda" else "a loop")
@@ -223,33 +245,43 @@ def _print_info(cfg: SweepConfig) -> None:
     sms = (torch.cuda.get_device_properties(device).multi_processor_count
            if device.type == "cuda" and torch.cuda.is_available()
            else SMS_H100)
+    _print_pick(code, cfg, backend, cfg.batch, sms)
+    if two_phase:
+        print("(II) phase 2      :")
+        _print_pick(code, cfg, backend, min(cfg.twophase_tail, cfg.batch),
+                    sms)
+
+
+def _print_pick(code, cfg: SweepConfig, backend: str, batch: int,
+                sms: int) -> None:
+    """The decode kernel's variant for a batch of ``batch``."""
     if backend == "cuda-gather":
         from ..codes.convert import layer_shapes
         from ..kernels import gather
 
         shapes = layer_shapes(code, cfg.schedule)
-        v = gather.pick_tile(code, cfg.batch, sms, cfg.schedule, shapes)
+        v = gather.pick_tile(code, batch, sms, cfg.schedule, shapes)
         print(f"(II) gather       : {len(shapes)} {cfg.schedule} layers, "
-              f"{v.tile} codewords per CTA at batch {cfg.batch} on {sms} SMs "
+              f"{v.tile} codewords per CTA at batch {batch} on {sms} SMs "
               f"(w={gather.W} a thread, k={v.k} lanes a check), "
               f"{gather.smem_bytes(code, v)} B shared memory")
     if backend == "cuda":
         from ..kernels import layered
 
-        tile = layered.pick_tile(code, cfg.batch, sms)
+        tile = layered.pick_tile(code, batch, sms)
         print(f"(II) QC kernel    : {tile} codewords per CTA at batch "
-              f"{cfg.batch} on {sms} SMs, {layered.NTHREADS // tile} check "
+              f"{batch} on {sms} SMs, {layered.NTHREADS // tile} check "
               f"lanes, {layered.smem_bytes(code, tile)} B shared memory")
     if backend == "cuda-streamed":
         from ..kernels import streamed
 
         shapes = streamed.layer_shapes(code, cfg.schedule)
-        v = streamed.pick_tile(code, cfg.batch, sms, cfg.schedule, shapes)
-        msgs = -(-cfg.batch // v.tile) * v.tile * sum(g * d for g, d in shapes)
+        v = streamed.pick_tile(code, batch, sms, cfg.schedule, shapes)
+        msgs = -(-batch // v.tile) * v.tile * sum(g * d for g, d in shapes)
         where = ("shared memory" if v.placement == "smem"
                  else "device memory")
         print(f"(II) streamed     : {v.tile} codewords per CTA at batch "
-              f"{cfg.batch} on {sms} SMs, {v.k} lanes a check, APP in "
+              f"{batch} on {sms} SMs, {v.k} lanes a check, APP in "
               f"{where} ({streamed.smem_bytes(code, v)} B shared memory a "
               f"CTA), messages in device memory ({msgs} B)")
 

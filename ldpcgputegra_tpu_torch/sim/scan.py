@@ -6,8 +6,11 @@ On a CUDA device the S batches (channel -> quantize -> decode -> count,
 each ``step(gen)``; on the coded path the info bits' draw and the encoder
 first) are captured once into one ``torch.cuda.CUDAGraph``,
 and a dispatch is one replay plus a device-side copy of the graph's
-``[S, 2]`` (BE, FE) buffer, so that several replays can be in flight
-without one overwriting another's counts.  Batch j of a dispatch draws
+``[S, 2]`` (BE, FE) buffer (``[S, 3]`` with two-phase early termination:
+BE, FE and the unconverged count, ``sim/sweep.py``; phase 1, the
+compaction, phase 2 at its fixed tail and the merge are all in the
+graph), so that several replays can be in flight without one overwriting
+another's counts.  Batch j of a dispatch draws
 its info bits and noise from the j-th of S generators, each registered
 with the graph (``register_generator_state``) and reseeded before each
 replay: a replay reads a generator's seed and offset when it starts, so
@@ -57,9 +60,10 @@ def _launch_counters() -> list[dict]:
 
 class ScanSteps:
     """``S`` steps a dispatch.  ``step(gen)`` queues one batch and returns
-    its ``[2]`` int64 (BE, FE) tensor; ``ScanSteps(step, S, device)(seeds)``
-    runs S of them, batch j from a generator seeded with ``seeds[j]``, and
-    returns their ``[S, 2]`` counts, not fetched."""
+    its counts, a ``[C]`` int64 tensor ((BE, FE), or (BE, FE, unconverged));
+    ``ScanSteps(step, S, device)(seeds)`` runs S of them, batch j from a
+    generator seeded with ``seeds[j]``, and returns their ``[S, C]``
+    counts, not fetched."""
 
     def __init__(self, step: Callable[[torch.Generator], torch.Tensor],
                  S: int, device):

@@ -25,6 +25,24 @@ JAX.  The coded path folds its batches too (the info bits' draw and the
 encoder inside the graph), where JAX's dispatches one at a time; the
 native backend dispatches one batch at a time.
 
+``et = "twophase"`` decodes each batch by two-phase early termination
+(``decoder/twophase.py``) in place of the kernel's own (``early_term`` is
+then ignored): phase 1 at ``twophase_k1`` iterations with the convergence
+mask, the unconverged frames first (a stable sort of the mask), phase 2 at
+the full budget on the first ``twophase_tail`` of them, the merge, and the
+count: (BE, FE, unconverged) a batch, queued with no host read, so S
+batches are one graph replay as on the kernel-ET path (whose counts stay
+(BE, FE)).  At the fetch, a batch whose unconverged count exceeds the tail
+kept some unconverged frames' k1-iteration bits: its inputs are made again
+from its seed and decoded again exactly (``decode.repair``, in the span
+``ldpc.twophase.repair``, count: the batches repaired at that fetch), and
+its counts replace the graph's before the terminal, the checkpoint and the
+stop test read them.  So every batch's counts are plain two-phase's: a
+frame whose k1-iteration decision satisfies every check keeps it, every
+other frame gets its full-budget decode, whatever the tail and S.  Each
+fetched group is added to ``twophase.stats``; ``on_counts(point, first
+batch, rows)`` receives each fetched group's final counts, a row a batch.
+
 ``LDPC_TPU_DEBUG_TIMING=1`` prints each window's host spans, as the JAX
 sweep does: the time spent dispatching, the time waiting on the fetch of
 the counts, and the batches fetched; ``on_window`` receives the same
@@ -52,7 +70,7 @@ from ..channel.awgn import AwgnChannel, ChannelSpec
 from ..channel.bitgen import generate_info_bits
 from ..channel.encoder import FakeEncoder, make_encoder
 from ..codes.registry import load_code
-from ..decoder import default_device, make_decoder
+from ..decoder import default_device, make_decoder, twophase
 from ..ops.layered import LayeredSpec
 from ..quant import QuantSpec
 from ..utils.profiling import span
@@ -75,6 +93,12 @@ class SweepConfig:
     early_term: bool = True
     minclamp: str = "pre"
     schedule: str = "auto"
+    # kernel: each decoder's own early termination (early_term); twophase:
+    # two-phase early termination, phase 1 at twophase_k1 iterations, phase
+    # 2 at the full budget on a fixed tail of twophase_tail frames
+    et: str = "kernel"
+    twophase_k1: int = 5
+    twophase_tail: int = 256
 
     snr_min: float = 0.5
     snr_max: float = 4.0
@@ -209,9 +233,23 @@ def run_sweep(
     progress: bool = True,
     on_point: Optional[Callable[[SnrPoint], None]] = None,
     on_window: Optional[Callable[[float, float, int], None]] = None,
+    on_counts: Optional[Callable[[int, int, list], None]] = None,
 ) -> SweepResult:
     """Run the sweep; ``on_point(point)`` after each SNR point,
-    ``on_window(dispatch_s, fetch_s, batches)`` after each fetch window."""
+    ``on_window(dispatch_s, fetch_s, batches)`` after each fetch window,
+    ``on_counts(point, first batch, rows)`` before it: the window's counts,
+    a list of [BE, FE] (two-phase: [BE, FE, unconverged]) a batch."""
+    if cfg.et not in ("kernel", "twophase"):
+        raise ValueError(f"unknown et {cfg.et!r}: kernel or twophase")
+    two_phase = cfg.et == "twophase"
+    if two_phase and cfg.backend == "native":
+        raise ValueError("et='twophase' runs on the factory's decoders; "
+                         "backend='native' has no convergence mask")
+    if two_phase and not (1 <= cfg.twophase_k1 <= cfg.iters
+                          and cfg.twophase_tail >= 1):
+        raise ValueError(f"two-phase needs 1 <= k1 <= iters and a tail of "
+                         f"at least 1 frame, got k1={cfg.twophase_k1}, "
+                         f"tail={cfg.twophase_tail}")
     device = torch.device(cfg.device) if cfg.device else default_device()
     code = load_code(cfg.code)
     quant = QuantSpec(factor=cfg.quant_factor, bits_llr=cfg.bits_llr)
@@ -248,23 +286,45 @@ def run_sweep(
             and not chan_spec.no_channel and chan_spec.inject_flip_p == 0.0
         )
         native_amp = (1.0 / math.sqrt(2.0)) if cfg.qpsk else 1.0
+    elif two_phase:
+        decoder = twophase.make_twophase_decoder(
+            code, spec, k1=cfg.twophase_k1, backend=cfg.backend,
+            device=device)
     else:
         decoder = make_decoder(code, spec, backend=cfg.backend, device=device)
+    tail = min(cfg.twophase_tail, cfg.batch)
+
+    def inputs(gen: torch.Generator):
+        """One batch's LLRs from ``gen``, and the bits sent (None: the
+        all-zero codeword)."""
+        if is_fake:
+            return channel.generate_zero_int8(gen, cfg.batch), None
+        info = generate_info_bits(gen, cfg.batch, code.K, cfg.random_bits)
+        coded = encoder.encode(info)
+        # the decoded bits' type, so that the count's kernel takes it
+        return channel.generate_int8(gen, coded), coded.view(torch.uint8)
 
     def step(gen: torch.Generator) -> torch.Tensor:
-        """One batch from ``gen``: [2] int64 (BE, FE) on the device."""
-        if is_fake:
-            llr = channel.generate_zero_int8(gen, cfg.batch)
-            reference = None
-        else:
-            info = generate_info_bits(gen, cfg.batch, code.K, cfg.random_bits)
-            coded = encoder.encode(info)
-            llr = channel.generate_int8(gen, coded)
-            # the decoded bits' type, so that the count's kernel takes it
-            reference = coded.view(torch.uint8)
+        """One batch from ``gen``: [2] int64 (BE, FE) on the device; with
+        two-phase ET [3] (BE, FE, unconverged)."""
+        llr, reference = inputs(gen)
+        if two_phase:
+            decoded, n_bad = decoder.step(llr, tail)
+            return torch.stack((*count_errors_async(
+                decoded, reference=reference, info_only=info_only, k=code.K),
+                n_bad))
         decoded, _ = decoder(llr)
         return torch.stack(count_errors_async(
             decoded, reference=reference, info_only=info_only, k=code.K))
+
+    def repaired(pi: int, k: int, n_bad: int) -> list:
+        """Batch k of point pi decoded again exactly (two-phase): [BE, FE,
+        unconverged], fetched."""
+        llr, reference = inputs(channel.generator(batch_seed(cfg.seed, pi, k)))
+        be, fe = count_errors_async(decoder.repair(llr, n_bad),
+                                    reference=reference, info_only=info_only,
+                                    k=code.K)
+        return [int(be), int(fe), n_bad]
 
     def native_step(gen: torch.Generator, pi: int, k: int,
                     xchecked: list) -> torch.Tensor:
@@ -339,7 +399,8 @@ def run_sweep(
             xchecked = [False]
 
             def dispatch(k: int, pi=pi, xchecked=xchecked) -> torch.Tensor:
-                """Batches k .. k + grp - 1: [grp, 2] counts, not fetched."""
+                """Batches k .. k + grp - 1: [grp, 2] counts (two-phase:
+                [grp, 3]), not fetched."""
                 if use_native:
                     return native_step(
                         channel.generator(batch_seed(cfg.seed, pi, k)), pi, k,
@@ -368,12 +429,28 @@ def run_sweep(
                 with span("sweep.fetch", request=req, start=t_fetch) as sp:
                     n_fetch = (max(1, len(inflight) // 2) if not stop
                                else len(inflight))
-                    group = [inflight.popleft()[1] for _ in range(n_fetch)]
-                    stacked = torch.cat(group).cpu().tolist()
-                    for be_i, fe_i in stacked:
-                        analyzer.add_counts(cfg.batch, int(be_i), int(fe_i))
+                    group = [inflight.popleft() for _ in range(n_fetch)]
+                    k_first = group[0][0]
+                    stacked = torch.cat([c for _, c in group]).cpu().tolist()
+                    if two_phase:
+                        over = [j for j, r in enumerate(stacked)
+                                if r[2] > tail]
+                        if over:
+                            with span("twophase.repair", request=req,
+                                      count=len(over)):
+                                for j in over:
+                                    stacked[j] = repaired(pi, k_first + j,
+                                                          stacked[j][2])
+                        twophase.tally(cfg.batch, tail,
+                                       [r[2] for r in stacked],
+                                       [stacked[j][2] for j in over])
+                    for row in stacked:
+                        analyzer.add_counts(cfg.batch, int(row[0]),
+                                            int(row[1]))
                         batch_idx += 1
                     sp.count = len(stacked)
+                    if on_counts is not None:
+                        on_counts(pi, k_first, stacked)
                 t_end = sp.end = time.perf_counter()
                 if on_window is not None:
                     on_window(t_fetch - t_disp, t_end - t_fetch, len(stacked))
