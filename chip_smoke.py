@@ -77,7 +77,9 @@ of a coded sweep; (phase 28) the two-phase sweep (``SweepConfig.et =
 replay: each batch's (BE, FE, unconverged) against the eager two-phase
 decoder's on the same seeds, at a tail of 256 and at a tail of 16 that
 every batch overflows (each repaired at its fetch), with K1's launches
-and its masked launches counted.
+and its masked launches counted: a replay launches K1 16 times with its
+mask and once without (the 16 batches' tails in one phase-2 call), where
+a kernel-ET sweep's replay launches it 16 times.
 Imports nothing of JAX.  Exits non-zero, before printing any result, when
 there is no CUDA device or the package is not beside this script; any
 failing phase exits non-zero.  The last line of standard output is
@@ -495,10 +497,13 @@ def _twophase_path(dev, smi, alu_rate):
 def _twophase_sweep(dev, smi):
     """The two-phase sweep at 2304x1152 B=8192, 3.0 dB, k1 5, S=16: every
     batch's counts against the eager two-phase decoder's, at a tail of
-    256 and at one of 16 that every batch overflows; K1's launches (two a
-    batch, two more a repair, two for the warm-up before the capture) and
-    its masked launches (one a batch, one a repair, one warm-up).
-    Returns the launches of the tail-256 sweep."""
+    256 and at one of 16 that every batch overflows; K1's launches (a
+    masked one a batch, one unmasked a dispatch for the 16 batches'
+    tails, two a repair, and the warm-up dispatch's 17 before the
+    capture), its masked launches (one a batch, one a repair, 16
+    warm-up) and a replay's (16 masked, one unmasked); then a kernel-ET
+    sweep's replay, 16 K1 launches.  Returns the launches of the tail-256
+    sweep."""
     import torch
 
     from ldpcgputegra_tpu_torch.channel.awgn import AwgnChannel
@@ -506,8 +511,16 @@ def _twophase_sweep(dev, smi):
     from ldpcgputegra_tpu_torch.decoder import twophase
     from ldpcgputegra_tpu_torch.kernels import layered as K
     from ldpcgputegra_tpu_torch.ops.layered import LayeredSpec
+    from ldpcgputegra_tpu_torch.sim import sweep
     from ldpcgputegra_tpu_torch.sim.analyzer import count_errors
+    from ldpcgputegra_tpu_torch.sim.scan import ScanSteps
     from ldpcgputegra_tpu_torch.sim.sweep import batch_seed, run_sweep
+
+    made = []  # the sweeps' ScanSteps, to read what a replay launches
+
+    def keep(*a, **k):
+        made.append(ScanSteps(*a, **k))
+        return made[-1]
 
     code, B = load_code("2304x1152"), 8192
     tp = twophase.make_twophase_decoder(
@@ -515,41 +528,58 @@ def _twophase_sweep(dev, smi):
     chan = AwgnChannel(code.N, code.K, device=dev)
     chan.configure(3.0)
     first = None
-    for tail, n_batches in ((256, 64), (16, 32)):
-        rows = {}
-        before = dict(twophase.stats)
-        l0 = dict(K.launches)
-        cfg = _sweep_cfg(code="2304x1152", batch=B, snr_min=3.0,
-                         snr_max=3.0, max_frames=n_batches * B,
-                         pipeline_depth=1, scan_steps=16, et="twophase",
-                         twophase_k1=5, twophase_tail=tail)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        (p,) = run_sweep(cfg, progress=False,
-                         on_counts=lambda pi, k, r: rows.update(
-                             {k + j: tuple(x) for j, x in enumerate(r)})
-                         ).points
-        wall = time.perf_counter() - t0
-        launches = {k: K.launches[k] - l0[k] for k in l0}
-        delta = {k: twophase.stats[k] - before[k] for k in before}
-        for k, row in rows.items():
-            bits, st = tp(chan.generate_zero_int8(
-                chan.generator(batch_seed(cfg.seed, 0, k)), B))
-            assert row == (*count_errors(bits), st["phase2_frames"]), (
-                f"batch {k}: the sweep's {row}, the eager decoder's")
-        reps = delta["repairs"]
-        assert p.batches == len(rows) == n_batches == delta["batches"]
-        assert reps == sum(r[2] > tail for r in rows.values())
-        assert (tail == 16) == (reps == n_batches), delta
-        assert launches == {"layered_minsum": 2 * (n_batches + reps + 1),
-                            "layered_minsum_mask": n_batches + reps + 1}, (
-            launches)
-        print(f"[twophase-sweep] 2304x1152 B={B} 3.0 dB k1=5 tail={tail} "
-              f"S=16: {n_batches} batches equal to the eager two-phase "
-              f"decoder's (BE, FE, unconverged); {delta}; K1 launches "
-              f"{launches}; {p.frames * code.N / wall / 1e6:.1f} coded "
-              f"Mbit/s over {wall:.3f} s with the capture | {smi}")
-        first = first or launches["layered_minsum"]
+    sweep.ScanSteps = keep
+    try:
+        for tail, n_batches in ((256, 64), (16, 32)):
+            rows = {}
+            before = dict(twophase.stats)
+            l0 = dict(K.launches)
+            cfg = _sweep_cfg(code="2304x1152", batch=B, snr_min=3.0,
+                             snr_max=3.0, max_frames=n_batches * B,
+                             pipeline_depth=1, scan_steps=16, et="twophase",
+                             twophase_k1=5, twophase_tail=tail)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (p,) = run_sweep(cfg, progress=False,
+                             on_counts=lambda pi, k, r: rows.update(
+                                 {k + j: tuple(x) for j, x in enumerate(r)})
+                             ).points
+            wall = time.perf_counter() - t0
+            launches = {k: K.launches[k] - l0[k] for k in l0}
+            delta = {k: twophase.stats[k] - before[k] for k in before}
+            for k, row in rows.items():
+                bits, st = tp(chan.generate_zero_int8(
+                    chan.generator(batch_seed(cfg.seed, 0, k)), B))
+                assert row == (*count_errors(bits), st["phase2_frames"]), (
+                    f"batch {k}: the sweep's {row}, the eager decoder's")
+            reps, disp = delta["repairs"], n_batches // 16
+            assert p.batches == len(rows) == n_batches == delta["batches"]
+            assert reps == sum(r[2] > tail for r in rows.values())
+            assert (tail == 16) == (reps == n_batches), delta
+            assert delta["phase2_calls"] == disp + reps, delta
+            assert launches == {
+                "layered_minsum": n_batches + disp + 2 * reps + 17,
+                "layered_minsum_mask": n_batches + reps + 16}, launches
+            per_replay = made[-1].replayed(K.launches)
+            assert per_replay == {"layered_minsum": 17,
+                                  "layered_minsum_mask": 16}, per_replay
+            print(f"[twophase-sweep] 2304x1152 B={B} 3.0 dB k1=5 "
+                  f"tail={tail} S=16: {n_batches} batches equal to the "
+                  f"eager two-phase decoder's (BE, FE, unconverged); "
+                  f"{delta}; K1 launches {launches}, a replay "
+                  f"{per_replay}; {p.frames * code.N / wall / 1e6:.1f} "
+                  f"coded Mbit/s over {wall:.3f} s with the capture | {smi}")
+            first = first or launches["layered_minsum"]
+        run_sweep(_sweep_cfg(code="2304x1152", batch=B, snr_min=3.0,
+                             snr_max=3.0, max_frames=16 * B,
+                             pipeline_depth=1, scan_steps=16),
+                  progress=False)
+        per_replay = made[-1].replayed(K.launches)
+        assert per_replay == {"layered_minsum": 16,
+                              "layered_minsum_mask": 0}, per_replay
+        print(f"[twophase-sweep] kernel ET, S=16: a replay {per_replay}")
+    finally:
+        sweep.ScanSteps = ScanSteps
     return first
 
 

@@ -34,17 +34,31 @@ frames' k1-iteration bits; ``decode.repair(llr, n_bad)`` decodes it again
 exactly (phase 1, then phase 2 on all ``n_bad`` unconverged frames), as
 ``decode.pipelined_fused`` does after its one read of a window's counts.
 
+``with decode.grouped(S):`` splits ``step`` in two for up to S batches:
+inside the block each ``step`` runs its phase 1, the sort and the gather
+of its tail's LLRs into its slot of one ``[S x tail, N]`` buffer, and
+returns phase 1's bits; as the block exits, one phase-2 decoder call
+decodes every slot at the full budget and each batch's tail is merged
+into the bits its ``step`` returned, in place.  So S partial waves of
+phase 2 become one call at S times the batch.  The decoder decodes each
+frame on its own (early termination is off in phase 2), so the bits are
+those of S plain ``step``s; a ``step``'s bits are complete only once the
+block has exited.
+
 While a profiler runs, phase 1 records the span ``ldpc.twophase.phase1``
-(count: frames) and phase 2 ``ldpc.twophase.phase2`` (count: its batch),
+(count: frames) and phase 2 ``ldpc.twophase.phase2`` (count: its batch;
+in a group, one span at the block's exit, count: the group's tails),
 ``utils/profiling.py``; under a graph's capture they are recorded once.
 ``stats`` counts what the sweep's fetches read: ``batches``, ``frames``,
 ``unconverged`` (frames phase 1 left), ``tail_frames`` (phase 2's batch,
-summed), ``repairs`` (batches decoded again) and ``repaired_frames`` (the
-frames those repairs decoded at the full budget).
+summed), ``repairs`` (batches decoded again), ``repaired_frames`` (the
+frames those repairs decoded at the full budget) and ``phase2_calls``
+(phase 2's decoder calls: one a dispatch of the sweep, one a repair).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -59,19 +73,22 @@ __all__ = ["make_twophase_decoder", "syndrome_fn", "stats", "tally"]
 # The two-phase sweep's counters, added to on the host from each fetched
 # group's counts (``tally``), with no synchronisation of their own.
 stats = {"batches": 0, "frames": 0, "unconverged": 0, "tail_frames": 0,
-         "repairs": 0, "repaired_frames": 0}
+         "repairs": 0, "repaired_frames": 0, "phase2_calls": 0}
 
 
-def tally(batch: int, tail: int, unconverged, repaired) -> None:
+def tally(batch: int, tail: int, unconverged, repaired,
+          dispatches: int) -> None:
     """Add a fetched group to ``stats``: ``unconverged``, each batch's
     unconverged count; ``repaired``, the counts of the batches decoded
-    again (those above ``tail``, phase 2's batch)."""
+    again (those above ``tail``, phase 2's batch); ``dispatches``, the
+    group's dispatches, each with one phase-2 call."""
     stats["batches"] += len(unconverged)
     stats["frames"] += batch * len(unconverged)
     stats["unconverged"] += sum(unconverged)
     stats["tail_frames"] += tail * len(unconverged)
     stats["repairs"] += len(repaired)
     stats["repaired_frames"] += sum(repaired)
+    stats["phase2_calls"] += dispatches + len(repaired)
 
 
 def syndrome_fn(code: LdpcCode, device=None):
@@ -116,8 +133,8 @@ def make_twophase_decoder(
     ``spec.iters`` is the full budget; ``spec.early_term`` is ignored (the
     two phases are the early termination).  ``decode.pipelined``,
     ``decode.pipelined_fused``, ``decode.warm_buckets`` and
-    ``decode.warm_fused`` are as in the JAX package; ``decode.step`` and
-    ``decode.repair`` are the module docstring's.
+    ``decode.warm_fused`` are as in the JAX package; ``decode.step``,
+    ``decode.grouped`` and ``decode.repair`` are the module docstring's.
     """
     from . import default_device, make_decoder
 
@@ -138,25 +155,73 @@ def make_twophase_decoder(
             bits, _, ok = dec1(llr)
             return bits, ok, (~ok).sum()
 
+    def order(ok, te: int):
+        """The first ``te`` frames of the unconverged-first order (a stable
+        sort of the mask)."""
+        return torch.sort(ok.to(torch.uint8), stable=True).indices[:te]
+
+    def merge(bits, ok, gat, tail_bits):
+        """Write phase 2's ``tail_bits`` of the frames ``gat`` into
+        ``bits`` where phase 1 left them unconverged; rows past the count
+        are converged frames, which keep their bits."""
+        keep = ok.index_select(0, gat)[:, None]
+        bits.index_copy_(0, gat, torch.where(
+            keep, bits.index_select(0, gat), tail_bits))
+        return bits
+
     def phase2(llr, bits, ok, te: int):
         """Decode the first ``te`` frames of the unconverged-first order at
-        the full budget and write the unconverged ones into ``bits``; rows
-        past the count are converged frames, which keep their bits."""
+        the full budget and merge them into ``bits``."""
         with span("twophase.phase2", count=te):
-            gat = torch.sort(ok.to(torch.uint8), stable=True).indices[:te]
+            gat = order(ok, te)
             tail_bits, _ = dec2(llr.index_select(0, gat))
-            keep = ok.index_select(0, gat)[:, None]
-            bits.index_copy_(0, gat, torch.where(
-                keep, bits.index_select(0, gat), tail_bits))
-            return bits
+            return merge(bits, ok, gat, tail_bits)
+
+    group = None  # the open ``grouped`` block's state, else None
 
     def step(llr, tail: int):
         """One batch, phase 2 at the fixed ``tail`` (at most the batch):
         (bits, the unconverged count), both on the device, with no host
         read.  Where the count exceeds the tail, some unconverged frames
-        keep their k1-iteration bits: ``repair`` gives the exact bits."""
+        keep their k1-iteration bits: ``repair`` gives the exact bits.
+        Inside ``grouped``, phase 2 waits for the block's exit."""
         bits, ok, cnt = phase1(llr)
-        return phase2(llr, bits, ok, min(tail, llr.shape[0])), cnt
+        te = min(tail, llr.shape[0])
+        if group is None:
+            return phase2(llr, bits, ok, te), cnt
+        fronts = group["fronts"]
+        if not fronts:
+            group["te"] = te
+            group["buf"] = llr.new_empty((group["S"] * te, llr.shape[1]))
+        j = len(fronts)
+        if te != group["te"] or j == group["S"]:
+            raise ValueError(f"a group holds at most {group['S']} steps of "
+                             "one tail")
+        gat = order(ok, te)
+        torch.index_select(llr, 0, gat, out=group["buf"][j * te:(j + 1) * te])
+        fronts.append((bits, ok, gat))
+        return bits, cnt
+
+    @contextlib.contextmanager
+    def grouped(S: int):
+        """Up to ``S`` ``step``s of one fixed tail with one phase-2 call
+        (the module docstring)."""
+        nonlocal group
+        if group is not None:
+            raise RuntimeError("a group is already open")
+        g = group = {"S": S, "te": 0, "buf": None, "fronts": []}
+        try:
+            yield
+        finally:
+            group = None
+        if not g["fronts"]:
+            return
+        rows = g["buf"][:len(g["fronts"]) * g["te"]]
+        with span("twophase.phase2", count=rows.shape[0]):
+            tail_bits, _ = dec2(rows)
+            for (bits, ok, gat), t in zip(g["fronts"],
+                                          tail_bits.split(g["te"])):
+                merge(bits, ok, gat, t)
 
     def repair(llr, n_bad: int):
         """The exact two-phase bits of a batch whose unconverged count
@@ -264,6 +329,7 @@ def make_twophase_decoder(
         _sync()
 
     decode.step = step
+    decode.grouped = grouped
     decode.repair = repair
     decode.warm_buckets = warm_buckets
     decode.pipelined = decode_pipelined

@@ -247,9 +247,10 @@ def _print_info(cfg: SweepConfig) -> None:
            else SMS_H100)
     _print_pick(code, cfg, backend, cfg.batch, sms)
     if two_phase:
-        print("(II) phase 2      :")
-        _print_pick(code, cfg, backend, min(cfg.twophase_tail, cfg.batch),
-                    sms)
+        # the S batches of a dispatch share one phase-2 call
+        te = max(1, cfg.scan_steps) * min(cfg.twophase_tail, cfg.batch)
+        print(f"(II) phase 2      : one call a dispatch, {te} frames")
+        _print_pick(code, cfg, backend, te, sms)
 
 
 def _print_pick(code, cfg: SweepConfig, backend: str, batch: int,

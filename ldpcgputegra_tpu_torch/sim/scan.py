@@ -10,14 +10,19 @@ and a dispatch is one replay plus a device-side copy of the graph's
 BE, FE and the unconverged count, ``sim/sweep.py``; phase 1, the
 compaction, phase 2 at its fixed tail and the merge are all in the
 graph), so that several replays can be in flight without one overwriting
-another's counts.  Batch j of a dispatch draws
+another's counts.  Given ``per_dispatch=True``, ``step`` takes the S
+generators and queues the whole dispatch itself, returning its ``[S, C]``
+counts: the two-phase sweep's, whose S batches share one phase-2 call
+(``decoder/twophase.py::grouped``); it is captured, warmed up and, on the
+CPU, run as one call.  Batch j of a dispatch draws
 its info bits and noise from the j-th of S generators, each registered
 with the graph (``register_generator_state``) and reseeded before each
 replay: a replay reads a generator's seed and offset when it starts, so
 batch k keeps the draws of its own seed and the counts are the same for
 any S.
 
-Before the capture one eager step runs on a side stream: the kernel
+Before the capture one eager step (with ``per_dispatch``, one eager
+dispatch) runs on a side stream: the kernel
 wrappers' and the encoder's one-time work (their tables copied to the
 card, the library loaded, the variant picked, the kernel's shared-memory
 attribute) happens there, not under capture.  The capture calls ``capture_begin`` and
@@ -63,11 +68,14 @@ class ScanSteps:
     its counts, a ``[C]`` int64 tensor ((BE, FE), or (BE, FE, unconverged));
     ``ScanSteps(step, S, device)(seeds)`` runs S of them, batch j from a
     generator seeded with ``seeds[j]``, and returns their ``[S, C]``
-    counts, not fetched."""
+    counts, not fetched.  With ``per_dispatch``, ``step(gens)`` queues the
+    S batches, batch j from ``gens[j]``, and returns the ``[S, C]``
+    counts."""
 
-    def __init__(self, step: Callable[[torch.Generator], torch.Tensor],
-                 S: int, device):
+    def __init__(self, step: Callable, S: int, device,
+                 per_dispatch: bool = False):
         self.step = step
+        self.per_dispatch = per_dispatch
         self.S = S
         self.device = torch.device(device)
         self.gens = [torch.Generator(device=self.device) for _ in range(S)]
@@ -76,13 +84,22 @@ class ScanSteps:
         self.per_replay: list[dict] = []  # launches a replay, by counter
         self.capture_s = 0.0  # host seconds of the warm-up and capture
 
+    def _queue(self, gens) -> torch.Tensor:
+        """The dispatch's ``[S, C]`` counts, batch j from ``gens[j]``."""
+        if self.per_dispatch:
+            return self.step(gens)
+        return torch.stack([self.step(g) for g in gens])
+
     def _capture(self) -> None:
         t0 = time.perf_counter()
         warm = torch.Generator(device=self.device).manual_seed(0)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            self.step(warm)
+            if self.per_dispatch:
+                self.step([warm] * self.S)
+            else:
+                self.step(warm)
         side.synchronize()
         counters = _launch_counters()
         before = [dict(c) for c in counters]
@@ -92,7 +109,7 @@ class ScanSteps:
         with torch.cuda.stream(side):
             graph.capture_begin()
             try:
-                self._counts = torch.stack([self.step(g) for g in self.gens])
+                self._counts = self._queue(self.gens)
             finally:
                 graph.capture_end()
         torch.cuda.current_stream(self.device).wait_stream(side)
@@ -122,7 +139,7 @@ class ScanSteps:
             for g, s in zip(self.gens, seeds):
                 g.manual_seed(s)
         if not graphed:
-            return torch.stack([self.step(g) for g in self.gens])
+            return self._queue(self.gens)
         self.graph.replay()
         self.replays += 1
         for c, n in zip(_launch_counters(), self.per_replay):

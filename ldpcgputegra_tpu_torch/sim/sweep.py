@@ -32,7 +32,12 @@ mask, the unconverged frames first (a stable sort of the mask), phase 2 at
 the full budget on the first ``twophase_tail`` of them, the merge, and the
 count: (BE, FE, unconverged) a batch, queued with no host read, so S
 batches are one graph replay as on the kernel-ET path (whose counts stay
-(BE, FE)).  At the fetch, a batch whose unconverged count exceeds the tail
+(BE, FE)).  With S > 1 the S batches of a dispatch share one phase-2 call
+(``decode.grouped``): each batch's phase 1 and the gather of its tail, then
+one decode of the S tails at the full budget, then each batch's merge and
+count; at S = 1 each batch is one ``decode.step``.  Each batch keeps its
+own tail, and the bits are the same either way.  At the fetch, a batch
+whose unconverged count exceeds the tail
 kept some unconverged frames' k1-iteration bits: its inputs are made again
 from its seed and decoded again exactly (``decode.repair``, in the span
 ``ldpc.twophase.repair``, count: the batches repaired at that fetch), and
@@ -309,13 +314,26 @@ def run_sweep(
         two-phase ET [3] (BE, FE, unconverged)."""
         llr, reference = inputs(gen)
         if two_phase:
-            decoded, n_bad = decoder.step(llr, tail)
-            return torch.stack((*count_errors_async(
-                decoded, reference=reference, info_only=info_only, k=code.K),
-                n_bad))
+            return counted(*decoder.step(llr, tail), reference)
         decoded, _ = decoder(llr)
         return torch.stack(count_errors_async(
             decoded, reference=reference, info_only=info_only, k=code.K))
+
+    def counted(decoded, n_bad, reference) -> torch.Tensor:
+        """[3] int64 (BE, FE, unconverged) of a two-phase batch."""
+        return torch.stack((*count_errors_async(
+            decoded, reference=reference, info_only=info_only, k=code.K),
+            n_bad))
+
+    def grouped_step(gens: list) -> torch.Tensor:
+        """Two-phase, one batch from each of ``gens``, phase 2 of them all
+        in one call: [S, 3] int64 (BE, FE, unconverged) on the device."""
+        made = []
+        with decoder.grouped(len(gens)):
+            for gen in gens:
+                llr, reference = inputs(gen)
+                made.append((*decoder.step(llr, tail), reference))
+        return torch.stack([counted(*m) for m in made])
 
     def repaired(pi: int, k: int, n_bad: int) -> list:
         """Batch k of point pi decoded again exactly (two-phase): [BE, FE,
@@ -367,7 +385,10 @@ def run_sweep(
 
     # batches a dispatch: scan-folded on every path but the native one
     grp = max(1, cfg.scan_steps) if not use_native else 1
-    scan = ScanSteps(step, grp, device) if grp > 1 else None
+    scan = None
+    if grp > 1:
+        scan = (ScanSteps(grouped_step, grp, device, per_dispatch=True)
+                if two_phase else ScanSteps(step, grp, device))
     metrics_f = open(cfg.metrics, "a") if cfg.metrics else None
     ckpt = _load_ckpt(cfg.checkpoint)
     debug_t = os.environ.get("LDPC_TPU_DEBUG_TIMING") == "1"
@@ -443,7 +464,8 @@ def run_sweep(
                                                           stacked[j][2])
                         twophase.tally(cfg.batch, tail,
                                        [r[2] for r in stacked],
-                                       [stacked[j][2] for j in over])
+                                       [stacked[j][2] for j in over],
+                                       len(group))
                     for row in stacked:
                         analyzer.add_counts(cfg.batch, int(row[0]),
                                             int(row[1]))

@@ -4,7 +4,10 @@ a graphed batch's bits are byte for byte the eager two-phase decode's, at
 B=8192 on the QC kernel and on a gather-kernel code; the QC kernel's
 convergence mask under capture equals the mask outside it; a sweep whose
 tail every batch overflows is repaired to the eager decode's counts, with
-the repairs counted and the masked launches counted under their own key.
+the repairs counted and the masked launches counted under their own key;
+the 16 batches of a replay share one phase-2 call, at tails of 256 and
+16, with the eager decode's counts; a kernel-ET sweep's replay launches
+one K1 a batch, as before.
 Every test here needs an NVIDIA GPU and skips without one.
 
 On a machine with a card (and without jax, which ``tests/conftest.py``
@@ -115,5 +118,75 @@ def test_forced_overflow_is_repaired_exactly(dev):
     assert over and delta["repairs"] == len(over)
     assert delta["repaired_frames"] == sum(r[2] for r in over)
     # a masked launch a batch in the graph's replays, one a repair, and
-    # the warm-up's before the capture
-    assert masked == len(rows) + len(over) + 1
+    # the warm-up dispatch's (4 batches) before the capture
+    assert masked == len(rows) + len(over) + 4
+
+
+def _sweep_keeping_scan(monkeypatch, cfg):
+    """Run ``cfg``'s sweep: its rows by batch and its ``ScanSteps``."""
+    from ldpcgputegra_tpu_torch.sim import sweep
+
+    made = []
+
+    def keep(*a, **k):
+        made.append(ScanSteps(*a, **k))
+        return made[-1]
+
+    monkeypatch.setattr(sweep, "ScanSteps", keep)
+    rows = {}
+    run_sweep(cfg, progress=False, on_counts=lambda p, k, r: rows.update(
+        {k + j: tuple(x) for j, x in enumerate(r)}))
+    (scan,) = made
+    return rows, scan
+
+
+def _cfg(**kw):
+    return SweepConfig(**dict(
+        dict(code="2304x1152", algo="OMS", iters=10, et="twophase",
+             twophase_k1=5, snr_min=3.0, snr_max=3.0, batch=8192,
+             max_fe=10**9, auto_fe=False, max_frames=32 * 8192,
+             scan_steps=16, pipeline_depth=2, seed=2**31 + 11,
+             device="cuda"), **kw))
+
+
+@pytest.mark.parametrize("tail", [256, 16])
+def test_one_phase2_call_a_replay(dev, monkeypatch, tail):
+    """B=8192, 3.0 dB, 16 batches a replay: each batch's counts are the
+    eager two-phase decoder's at a tail of 256, which no batch overflows,
+    and at one of 16, which every batch does (each repaired); a replay
+    launches K1 16 times with its mask and once without, phase 2 of the
+    16 tails."""
+    from ldpcgputegra_tpu_torch.kernels import channel as C
+    from ldpcgputegra_tpu_torch.kernels import layered as K
+
+    before = dict(twophase.stats)
+    rows, scan = _sweep_keeping_scan(monkeypatch, _cfg(twophase_tail=tail))
+    delta = {k: twophase.stats[k] - before[k] for k in before}
+    code = load_code("2304x1152")
+    tp = twophase.make_twophase_decoder(code, SPEC, k1=5, device=dev)
+    chan = _channel(code, 3.0, dev)
+    for k, row in rows.items():
+        bits, stats = tp(chan.generate_zero_int8(
+            chan.generator(batch_seed(2**31 + 11, 0, k)), 8192))
+        assert row == (*count_errors(bits), stats["phase2_frames"]), k
+    over = sum(r[2] > tail for r in rows.values())
+    assert len(rows) == 48 and over == (48 if tail == 16 else 0)
+    assert delta["repairs"] == over
+    assert delta["phase2_calls"] == 48 // 16 + over
+    assert scan.replayed(K.launches) == {"layered_minsum": 17,
+                                         "layered_minsum_mask": 16}
+    assert {k: v for k, v in scan.replayed(C.launches).items() if v} == {
+        "awgn_quantize": 16, "count_errors": 16}
+
+
+def test_kernel_et_replay_launches_one_k1_a_batch(dev, monkeypatch):
+    from ldpcgputegra_tpu_torch.kernels import channel as C
+    from ldpcgputegra_tpu_torch.kernels import layered as K
+
+    rows, scan = _sweep_keeping_scan(monkeypatch, _cfg(
+        et="kernel", early_term=True, max_frames=16 * 8192))
+    assert len(rows) == 32 and all(len(r) == 2 for r in rows.values())
+    assert scan.replayed(K.launches) == {"layered_minsum": 16,
+                                         "layered_minsum_mask": 0}
+    assert {k: v for k, v in scan.replayed(C.launches).items() if v} == {
+        "awgn_quantize": 16, "count_errors": 16}
